@@ -1,0 +1,138 @@
+"""Tests of the port that need a CUDA card: the hand-written LSAP kernel
+against its plain version and scipy, its wrapper's checks, and the tracker
+and frame step on the card against the CPU. They skip without a card, and
+import nothing of JAX. On the GPU machine:
+
+    python -m pytest -m gpu tests/test_torch_*.py
+
+and where JAX is not installed add --noconftest (tests/conftest.py
+configures JAX); the JAX parity files then skip at import."""
+import numpy as np
+import pytest
+import torch
+from scipy.optimize import linear_sum_assignment
+
+from deepdish_tpu_torch.ops.assignment import solve_lsap_plain
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepdish_tpu_torch.device import resolve_device
+    return resolve_device("cuda")
+
+
+def _pad(cost, k):
+    out = np.full((k, k), 7e7, np.float32)
+    out[:cost.shape[0], :cost.shape[1]] = cost
+    return out
+
+
+def _scipy(cost, k):
+    want = np.full((k,), -1, np.int32)
+    if cost.size:
+        rows, cols = linear_sum_assignment(cost.astype(np.float64))
+        want[rows] = cols
+    return want
+
+
+def test_lsap_kernel_matches_plain_and_scipy(cuda):
+    from deepdish_tpu_torch.kernels import lsap
+    rng = np.random.RandomState(1)
+    for k in (8, 33, 64):
+        cases = []
+        for _ in range(40):
+            r, c = rng.randint(0, k + 1), rng.randint(0, k + 1)
+            cost = rng.uniform(0, 0.4, size=(r, c)).astype(np.float32)
+            cost[cost > 0.2] = np.float32(0.2 + 1e-5)
+            cases.append(cost)
+        costs = torch.tensor(np.stack([_pad(c, k) for c in cases]),
+                             device=cuda)
+        sizes = torch.tensor([c.shape for c in cases], dtype=torch.int32,
+                             device=cuda)
+        before = lsap.launches
+        got = lsap.solve(costs, sizes).cpu().numpy()
+        assert lsap.launches == before + 1
+        np.testing.assert_array_equal(
+            got, solve_lsap_plain(costs.cpu(), sizes.cpu()).numpy())
+        for i, c in enumerate(cases):
+            np.testing.assert_array_equal(got[i], _scipy(c, k))
+
+
+def test_lsap_wrapper_refuses_what_the_kernel_cannot_take(cuda):
+    from deepdish_tpu_torch.kernels import lsap
+    costs = torch.zeros((2, 8, 8), device=cuda)
+    sizes = torch.zeros((2, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        lsap.solve(costs.double(), sizes)
+    with pytest.raises(TypeError):
+        lsap.solve(costs, sizes.long())
+    with pytest.raises(ValueError):
+        lsap.solve(costs[:, :, :4], sizes)
+    with pytest.raises(ValueError):
+        lsap.solve(costs.transpose(1, 2), sizes)
+    k = lsap.max_capacity() + 1
+    with pytest.raises(ValueError):
+        lsap.solve(torch.zeros((1, k, k), device=cuda), sizes[:1])
+
+
+def test_tracker_card_matches_cpu(cuda):
+    from deepdish_tpu_torch import tracker as tt
+    from deepdish_tpu_torch.kernels import lsap
+    rng = np.random.RandomState(2)
+    cfg = tt.TrackerConfig(max_tracks=16, max_detections=8, feature_dim=32,
+                           gallery_size=16, num_labels=2, max_age=5)
+    pos = rng.uniform(100, 400, (6, 2))
+    vel = rng.uniform(-6, 6, (6, 2))
+    feats = rng.normal(size=(6, 32))
+    tables = [tt.create_table(cfg, cuda), tt.create_table(cfg, "cpu")]
+    before = lsap.launches
+    for _ in range(30):
+        pos += vel
+        keep = rng.uniform(size=6) > 0.1
+        boxes = np.c_[pos + rng.normal(0, 1, pos.shape), np.full((6, 2), 40.0)]
+        cols = (boxes[keep], np.full(keep.sum(), 0.9), np.arange(6)[keep] % 2,
+                (feats + rng.normal(0, 0.05, feats.shape))[keep])
+        outs = []
+        for i, where in enumerate((cuda, "cpu")):
+            tables[i], out = tt.step(cfg, tables[i],
+                                     tt.pack_detections(cfg, *cols,
+                                                        device=where))
+            outs.append(out)
+        for name in ("track_id", "state", "matched_det", "deleted_id"):
+            np.testing.assert_array_equal(getattr(outs[0], name).cpu().numpy(),
+                                          getattr(outs[1], name).numpy())
+    assert lsap.launches > before
+
+
+def test_framestep_on_the_card(cuda):
+    from deepdish_tpu_torch import tracker as tt
+    from deepdish_tpu_torch.kernels import lsap
+    from deepdish_tpu_torch.models import (COCO_LABELS, create_box_encoder,
+                                           create_detector)
+    from deepdish_tpu_torch.pipeline import FrameStep
+    det = create_detector("ssd_mobilenet", device=cuda,
+                          generator=torch.Generator().manual_seed(0))
+    enc = create_box_encoder("mars", device=cuda,
+                             generator=torch.Generator().manual_seed(1))
+    cfg = tt.TrackerConfig(max_tracks=16, max_detections=8,
+                           gallery_size=32, num_labels=len(COCO_LABELS))
+    fs = FrameStep(det, enc, cfg, COCO_LABELS, (96, 128), device=cuda)
+    rng = np.random.RandomState(3)
+    base = rng.randint(0, 256, (96, 128, 3))
+    frames = np.clip(base[None] + rng.randint(-4, 5, (6, 96, 128, 3)), 0,
+                     255).astype(np.uint8)
+    before = lsap.launches
+    state = fs.init_state()
+    for f in frames:
+        state, out, snap, _ = fs.step(state, f)
+    state2, outs, snaps = fs.run_chunk(fs.init_state(), frames)
+    torch.cuda.synchronize()
+    assert lsap.launches > before
+    assert int(snap.valid.sum()) > 0
+    assert outs.track_id.shape == (6, 16) and snaps.tlwh.shape == (6, 8, 4)
+    assert bool(torch.isfinite(outs.tlwh).all())
+    assert (state.table.state != 0).any() and (state2.table.state != 0).any()

@@ -1,0 +1,92 @@
+"""The port stands alone: deepdish_tpu_torch and chip_smoke.py import no
+jax, no flax and nothing of deepdish_tpu, and its entry points need a card
+unless the caller asks for the CPU."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "deepdish_tpu_torch")
+_BANNED = ("jax", "flax", "deepdish_tpu")
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(PKG):
+        out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _banned(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in _BANNED
+
+
+def test_sources_found():
+    names = {os.path.relpath(p, ROOT) for p in _sources()}
+    assert "chip_smoke.py" in names
+    assert os.path.join("deepdish_tpu_torch", "kernels", "lsap.py") in names
+    assert len(names) > 20
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _banned(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and _banned(node.module):
+                bad.append(node.module)
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_import_pulls_no_jax():
+    code = ("import sys, deepdish_tpu_torch.pipeline, "
+            "deepdish_tpu_torch.models, deepdish_tpu_torch.kernels.lsap, "
+            "deepdish_tpu_torch.pipeline.counting\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'deepdish_tpu')]\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_entry_points_need_cuda_unless_cpu():
+    from deepdish_tpu_torch import tracker as pt
+    from deepdish_tpu_torch.models import (create_box_encoder,
+                                           create_detector)
+    from deepdish_tpu_torch.pipeline import FrameStep
+    cfg = pt.TrackerConfig(max_tracks=4, max_detections=2, feature_dim=128,
+                           gallery_size=8, pending_size=2)
+    det = create_detector("ssd_mobilenet", device="cpu")
+    enc = create_box_encoder("dummy", device="cpu")
+    fs = FrameStep(det, enc, cfg, ["person"], (32, 48), device="cpu")
+    assert fs.init_state().table.state.device.type == "cpu"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA defaults are valid here")
+    for call in (lambda: create_detector("ssd_mobilenet"),
+                 lambda: create_box_encoder("mars"),
+                 lambda: create_box_encoder("dummy"),
+                 lambda: pt.create_table(cfg),
+                 lambda: FrameStep(det, enc, cfg, ["person"], (32, 48))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_lsap_wrapper_refuses_cpu_tensors():
+    from deepdish_tpu_torch.kernels import lsap
+    costs = torch.zeros((1, 4, 4))
+    sizes = torch.zeros((1, 2), dtype=torch.int32)
+    before = lsap.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        lsap.solve(costs, sizes)
+    assert lsap.launches == before
