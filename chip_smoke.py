@@ -6,22 +6,35 @@
 Needs one CUDA card (an H100, sm_90a), nvcc and scipy. Phases, each fatal on
 failure:
 
-  1. build   every kernel in deepdish_tpu_torch/csrc/ (one nvcc each, all
-             started together); print build seconds and ptxas's register and
-             shared-memory lines;
+  1. build   every kernel in deepdish_tpu_torch/csrc/ (lsap, dsconv: one nvcc
+             each, all started together); print build seconds and ptxas's
+             register and shared-memory lines;
   2. kernel  the CUDA LSAP against the plain PyTorch LSAP on the card and
              scipy.optimize.linear_sum_assignment on the host, >= 200
              matrices at K in {8, 33, 64} (random, tie-heavy, clamped, wide,
              tall, empty, full, and one batched call): 0 mismatches; then
              kernel and plain times at K = 64, B = 1 with CUDA events;
-  3. tracker tracker.step at T=64, D=32, G=128, F=128 over a seeded
+  3. dsconv  the CUDA fused depthwise-separable kernel against its plain
+             PyTorch version on the card, f32 and bf16, both strides: the
+             JAX kernel test's shapes, 75x75 odd, the nine probe STAGES at
+             batch 2 (and at batch 32 in bf16, the probe's own inputs), and
+             the SSD's 13 ds blocks at batch 1 with weights folded from a
+             random-init port SSDMobileNetV1 (also held against each module's
+             f32 forward); f32 within atol 2e-5 + rtol 1e-5, bf16 within one
+             ulp, the intermediate bit-equal; then kernel, plain, cuDNN 2-conv
+             and bound per stage at batch 32 and per SSD block at batch 1;
+  4. tracker tracker.step at T=64, D=32, G=128, F=128 over a seeded
              countline scene, on the card (kernel) and on the CPU (plain):
              identical ids, states and matched_det on every frame, and the
              crossing counts the scene implies;
-  4. slice   FrameStep at 720p with random-init SSD-MobileNetV1 and MARS:
+  5. slice   FrameStep at 720p with random-init SSD-MobileNetV1 and MARS:
              `step` over 16 frames, `run_chunk` over 8; the LSAP launch
              count is reset before and read after, and must be > 0;
-  5. report  the `kernels` JSON line, the card's name and power limit, and
+  6. probe   the ported dsconv probe (deepdish_tpu_torch.tools.probe_dsconv)
+             at full width: batch 32, 6 layers, all 9 stages, 2 rounds of 4;
+             the dsconv launch counts are reset before and read after, and
+             both strides must have launched;
+  7. report  the `kernels` JSON line, the card's name and power limit, and
              as the last line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when there is no card or the port is not
@@ -37,9 +50,15 @@ import time
 import numpy as np
 
 SEED = 0
+KERNELS = ("lsap", "dsconv")     # csrc/<name>.cu
 LSAP_REPLACES = "deepdish_tpu/ops/assignment_pallas.py:49 (_kernel)"
+DSCONV_SOURCE = "deepdish_tpu_torch/csrc/dsconv.cu"
+DSCONV_REPLACES = {
+    1: "deepdish_tpu/ops/dsconv_pallas.py:83 (_dsconv_s1_kernel)",
+    2: "deepdish_tpu/ops/dsconv_pallas.py:110 (_dsconv_s2_kernel)"}
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_OPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
 
 
 def log(msg: str) -> None:
@@ -49,13 +68,25 @@ def log(msg: str) -> None:
 # ---------------------------------------------------------------- phase 1
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
     from deepdish_tpu_torch.kernels import _build
+
+    def build(name):
+        t0 = time.perf_counter()
+        _build.load(name)
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    _build.load("lsap")
-    log(f"[build] lsap: built (or loaded) in {time.perf_counter() - t0:.2f} s")
-    for line in _build.ptxas_report("lsap").splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            log(f"[build] lsap: {line.strip()}")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        secs = dict(zip(KERNELS, pool.map(build, KERNELS)))
+    log(f"[build] {len(KERNELS)} kernels, one nvcc each in parallel: "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name in KERNELS:
+        log(f"[build] {name}: built (or loaded) in {secs[name]:.2f} s")
+        for line in _build.ptxas_report(name).splitlines():
+            if any(k in line for k in ("Compiling entry", "registers",
+                                       "smem", "spill")):
+                log(f"[build] {name}: {line.strip()}")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -208,6 +239,280 @@ def phase_kernel(dev):
 
 # ---------------------------------------------------------------- phase 3
 
+# the JAX kernel test's shapes (tests/test_dsconv_pallas.py) and 75x75 odd:
+# (batch, H, W, Cin, Cout, stride)
+DSCONV_SHAPES = [(2, 10, 12, 8, 16, 1), (2, 11, 13, 8, 16, 2),
+                 (2, 10, 12, 8, 16, 2), (2, 9, 9, 16, 8, 1),
+                 (1, 75, 75, 16, 32, 1), (1, 75, 75, 16, 32, 2)]
+# the two timed shapes: the compute-bound and the bytes-bound extreme
+DSCONV_TIMED = {1: "ds13", 2: "ds2"}
+
+
+def _test_inputs(rng, b, h, w, cin, cout, dev, dtype):
+    """The JAX kernel test's distributions (tests/test_dsconv_pallas.py)."""
+    import torch
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+    return (f32(rng.standard_normal((b, h, w, cin))).to(dtype),
+            f32(rng.standard_normal((3, 3, cin)) * 0.2),
+            f32(rng.random(cin) + 0.5), f32(rng.standard_normal(cin) * 0.1),
+            f32(rng.standard_normal((cin, cout)) * 0.2),
+            f32(rng.random(cout) + 0.5), f32(rng.standard_normal(cout) * 0.1))
+
+
+def _probe_inputs(rng, b, h, w, cin, cout, dev):
+    """The probe's own distributions, bf16 (tools/probe_dsconv.py)."""
+    import torch
+    from deepdish_tpu_torch.tools.probe_dsconv import block_weights
+    x = torch.as_tensor(rng.standard_normal((b, h, w, cin)) * 0.1).to(
+        dev, torch.bfloat16)
+    return (x,) + block_weights(rng, cin, cout, dev)
+
+
+def _bf16_key(t):
+    """Monotone integer key of bf16 values: neighbours differ by one (one
+    ulp); -0 and +0 share a key."""
+    import torch
+    bits = t.contiguous().view(torch.int16).int()
+    return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+
+def _new_tally():
+    return {s: {"cases": 0, "mismatches": 0, "max_abs_err": 0.0,
+                "max_abs_err_f32": 0.0, "max_ulp_bf16": 0, "n_diff": 0,
+                "n_over_1ulp": 0, "n_out": 0}
+            for s in (1, 2)}
+
+
+def _check_dsconv(tally, what, args, stride):
+    """Kernel against plain on the card. f32: atol 2e-5 + rtol 1e-5 (the JAX
+    kernel test's). bf16: within ops.dsconv.reorder_tolerance (the bound on
+    reordering the f32 pointwise sum, the only difference, plus one ulp of
+    the final rounding). Both: the intermediate bit-equal, read as the output
+    of an identity pointwise kernel with unit scale and zero bias."""
+    import torch
+    from deepdish_tpu_torch.kernels import dsconv
+    from deepdish_tpu_torch.ops.dsconv import dsconv_plain, reorder_tolerance
+    x = args[0]
+    got = dsconv.fused(*args, stride=stride)
+    want = dsconv_plain(*args, stride=stride)
+    cin = x.shape[-1]
+    ones = torch.ones(cin, device=x.device)
+    ident = tuple(args[:4]) + (torch.eye(cin, device=x.device), ones,
+                               torch.zeros_like(ones))
+    mid_equal = torch.equal(dsconv.fused(*ident, stride=stride),
+                            dsconv_plain(*ident, stride=stride))
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    t = tally[stride]
+    err = float(diff.max())
+    t["cases"] += 1
+    t["max_abs_err"] = max(t["max_abs_err"], err)
+    t["n_diff"] += int((g != w).sum())
+    t["n_out"] += g.numel()
+    ok = (got.shape == want.shape and got.dtype == x.dtype and mid_equal
+          and bool(torch.isfinite(g).all()))
+    if x.dtype == torch.float32:
+        t["max_abs_err_f32"] = max(t["max_abs_err_f32"], err)
+        ok = ok and bool((diff <= 2e-5 + 1e-5 * w.abs()).all())
+        ulp = None
+    else:
+        ulps = (_bf16_key(got) - _bf16_key(want)).abs()
+        ulp = int(ulps.max())
+        t["max_ulp_bf16"] = max(t["max_ulp_bf16"], ulp)
+        t["n_over_1ulp"] += int((ulps > 1).sum())
+        ok = ok and bool((diff <= reorder_tolerance(got, want, *args,
+                                                    stride=stride)).all())
+    if not ok:
+        t["mismatches"] += 1
+        log(f"[dsconv] MISMATCH {what} s{stride} {str(x.dtype)[6:]}: max "
+            f"|kernel - plain| {err}, ulps {ulp}, intermediate bit-equal "
+            f"{mid_equal}, shapes "
+            f"{tuple(got.shape)} {tuple(want.shape)}")
+
+
+def _dsconv_bound(b, h, w, cin, cout, stride, elem=2):
+    """(bound_ms, bound_by): bytes = input + output + weights once each at
+    the HBM rate; operations = the pointwise product at the dense bf16
+    tensor-core rate plus the depthwise sum at the f32 rate."""
+    ho, wo = -(-h // stride), -(-w // stride)
+    m = b * ho * wo
+    nbytes = (elem * (b * h * w * cin + m * cout + 9 * cin + cin * cout)
+              + 4 * 2 * (cin + cout))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = (2 * m * cin * cout / BF16_OPS_PER_S
+              + 2 * 9 * m * cin / F32_OPS_PER_S) * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def _graph_ms(fn, reps):
+    """Time of one call (ms) with the host taken out: `reps` calls captured
+    in one CUDA graph, the graph replayed under CUDA events."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):           # warm-up off the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return _time_cuda(graph.replay, 5) / reps
+
+
+def _ssd_blocks(dev, tally):
+    """The SSD's 13 ds blocks at batch 1 on their real activations: a
+    random-init port SSDMobileNetV1 (flax-default convs, random batch-norm
+    statistics so the fold is no identity) driven from a random 300x300
+    image. Per block: kernel vs plain (f32, bf16), the f32 kernel vs the
+    module's own f32 forward within 1e-5 of its output's range, and bf16
+    times of the kernel, the cuDNN 2-conv and the module's bf16 forward
+    (the SSD's current path)."""
+    import copy
+
+    import torch
+    from deepdish_tpu_torch.kernels import dsconv
+    from deepdish_tpu_torch.models.layers import BatchNorm, flax_default_init_
+    from deepdish_tpu_torch.models.ssd_mobilenet import SSDMobileNetV1
+    from deepdish_tpu_torch.ops.dsconv import dsconv_reference
+
+    net = SSDMobileNetV1()
+    flax_default_init_(net, torch.Generator().manual_seed(SEED))
+    gen = torch.Generator().manual_seed(SEED + 5)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, BatchNorm):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    net = net.to(dev).eval()
+    rng = np.random.RandomState(SEED + 6)
+    image = torch.tensor(rng.randint(0, 256, (1, 300, 300, 3)),
+                         dtype=torch.float32, device=dev)
+    rows, worst = [], 0.0
+    with torch.inference_mode():
+        x = net.conv0(((image * (2.0 / 255.0)) - 1.0).permute(0, 3, 1, 2))
+        for k in range(1, 14):
+            mod = getattr(net, f"ds{k}")
+            stride = mod.dw.stride[0]
+            ws = mod.fused_args()
+            xin = x.permute(0, 2, 3, 1).contiguous()
+            want = mod(x).permute(0, 2, 3, 1)
+            got = dsconv.fused(xin, *ws, stride=stride)
+            span = float(want.max() - want.min())
+            rel = float((got - want).abs().max()) / max(span, 1e-30)
+            worst = max(worst, rel)
+            if not rel <= 1e-5:
+                raise SystemExit(f"dsconv: ds{k} kernel differs from the "
+                                 f"module's f32 forward by {rel} of the "
+                                 f"output's range {span}")
+            _check_dsconv(tally, f"ssd ds{k}", (xin,) + ws, stride)
+            x16 = xin.bfloat16()
+            _check_dsconv(tally, f"ssd ds{k}", (x16,) + ws, stride)
+            mod16 = copy.deepcopy(mod).to(torch.bfloat16)
+            x16n = x16.permute(0, 3, 1, 2)         # the SSD's NCHW view
+            b, h, w, cin = xin.shape
+            cout = ws[3].shape[1]
+            legs = (lambda: dsconv.fused(x16, *ws, stride),
+                    lambda: dsconv_reference(x16, *ws, stride),
+                    lambda: mod16(x16n))
+            rows.append((f"ds{k}", h, cin, cout, stride,
+                         [_time_cuda(f, 100) for f in legs],
+                         [_graph_ms(f, 20) for f in legs],
+                         _dsconv_bound(1, h, w, cin, cout, stride)[0], span))
+            x = want.permute(0, 3, 1, 2)
+    log(f"[dsconv] SSD ds1-ds13 at batch 1 (real activations, folded "
+        f"random weights): f32 kernel vs module forward, largest error "
+        f"{worst:.3e} of the output's range")
+    log("[dsconv] batch 1 bf16, ms per block, kernel / cudnn 2-conv / SSD "
+        "module: CUDA events over 100 eager calls (host launch gaps "
+        "included) | CUDA-graph replay of 20 calls (host taken out) | bound "
+        "(output range)")
+    tot = np.zeros(6)
+    for name, h, cin, cout, s, event, device, b_ms, span in rows:
+        tot += event + device
+        log(f"[dsconv]   {name:5s} {h:3d}^2 {cin:4d}->{cout:4d} s{s}: "
+            + " / ".join(f"{t:.5f}" for t in event) + " | "
+            + " / ".join(f"{t:.5f}" for t in device) + f" | {b_ms:.5f} "
+            f"({span:.3f})")
+    log("[dsconv]   sum of 13: " + " / ".join(f"{t:.5f}" for t in tot[:3])
+        + " | " + " / ".join(f"{t:.5f}" for t in tot[3:]))
+
+
+def phase_dsconv(dev):
+    """Kernel vs plain at every listed shape, then the timing tables;
+    returns the two `kernels` entries (launches filled in by the probe)."""
+    import torch
+    from deepdish_tpu_torch.kernels import dsconv
+    from deepdish_tpu_torch.ops.dsconv import dsconv_plain, dsconv_reference
+    from deepdish_tpu_torch.tools.probe_dsconv import STAGES
+
+    rng = np.random.default_rng(SEED + 4)
+    tally = _new_tally()
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, h, w, cin, cout, s in DSCONV_SHAPES:
+            _check_dsconv(tally, f"test {b}x{h}x{w} {cin}->{cout}",
+                          _test_inputs(rng, b, h, w, cin, cout, dev, dtype),
+                          s)
+        for label, h, w, cin, cout, s in STAGES:
+            _check_dsconv(tally, f"{label} batch 2",
+                          _test_inputs(rng, 2, h, w, cin, cout, dev, dtype),
+                          s)
+    for label, h, w, cin, cout, s in STAGES:
+        _check_dsconv(tally, f"{label} batch 32",
+                      _probe_inputs(rng, 32, h, w, cin, cout, dev), s)
+    _ssd_blocks(dev, tally)
+    for s in (1, 2):
+        t = tally[s]
+        log(f"[dsconv] stride {s}: {t['cases']} cases, {t['mismatches']} "
+            f"mismatches; {t['n_diff']} of {t['n_out']} outputs differ from "
+            f"plain; max |kernel - plain| f32 {t['max_abs_err_f32']:.3e}; "
+            f"bf16 {t['max_abs_err']:.3e}, {t['n_over_1ulp']} outputs over "
+            f"one ulp (largest {t['max_ulp_bf16']} ulp), all within the "
+            f"reorder tolerance")
+    if any(tally[s]["mismatches"] for s in (1, 2)):
+        raise SystemExit("dsconv kernel check failed")
+
+    log("[dsconv] batch 32 bf16, ms per block (CUDA events, 20 calls): "
+        "stage: kernel / cudnn 2-conv / bound (bound by)")
+    entries = {}
+    for label, h, w, cin, cout, s in STAGES:
+        args = _probe_inputs(rng, 32, h, w, cin, cout, dev)
+        kernel_ms = _time_cuda(lambda: dsconv.fused(*args, s), 20)
+        library_ms = _time_cuda(lambda: dsconv_reference(*args, s), 20)
+        bound_ms, bound_by = _dsconv_bound(32, h, w, cin, cout, s)
+        log(f"[dsconv]   {label}: {kernel_ms:.5f} / {library_ms:.5f} / "
+            f"{bound_ms:.5f} ({bound_by})")
+        if label.startswith(DSCONV_TIMED[s]):
+            plain_ms = _time_cuda(lambda: dsconv_plain(*args, s), 5)
+            kernel_ms = min(kernel_ms,
+                            _time_cuda(lambda: dsconv.fused(*args, s), 20))
+            t = tally[s]
+            entries[s] = {
+                "name": f"dsconv_s{s}", "route": "cuda",
+                "source": DSCONV_SOURCE, "replaces": DSCONV_REPLACES[s],
+                "shape": f"{label.split()[0]} x (32, {h}, {w}, {cin}) bf16 "
+                         f"-> {cout}",
+                "mismatches": t["mismatches"],
+                "max_abs_err": t["max_abs_err"],
+                "max_abs_err_f32": t["max_abs_err_f32"],
+                "max_ulp_bf16": t["max_ulp_bf16"],
+                "ms": kernel_ms, "kernel_ms": kernel_ms,
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by}
+            log(f"[dsconv]   {label}: kernel {kernel_ms:.5f} ms, plain "
+                f"torch {plain_ms:.5f} ms (the timed entry of stride {s})")
+        del args
+    return [entries[1], entries[2]]
+
+
+# ---------------------------------------------------------------- phase 4
+
 FRAME_H, FRAME_W = 720, 1280
 LINE_X = 640.0
 
@@ -300,7 +605,7 @@ def phase_tracker(dev):
         raise SystemExit("tracker phase: the LSAP kernel never launched")
 
 
-# ---------------------------------------------------------------- phase 4
+# ---------------------------------------------------------------- phase 5
 
 def _framestep(dev, frame_shape, compute_dtype=None):
     import torch
@@ -501,6 +806,36 @@ def phase_reference(dev):
         raise SystemExit(f"reference check: network outputs differ {errs}")
 
 
+# ---------------------------------------------------------------- phase 6
+
+def phase_probe(dev):
+    """The ported probe at full width through its entry point; returns the
+    dsconv launches by stride, counted from 0 over this run only."""
+    import torch
+    from deepdish_tpu_torch.kernels import dsconv
+    from deepdish_tpu_torch.tools import probe_dsconv
+
+    dsconv.launches = 0
+    dsconv.stride_launches.update({1: 0, 2: 0})
+    t0 = time.perf_counter()
+    rows = probe_dsconv.main(["--rounds", "2", "--reps", "4"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dsconv.launches
+    by_stride = dict(dsconv.stride_launches)
+    log(f"[probe] {len(rows)} stages at batch 32, 6 layers, in {seconds:.1f} "
+        f"s; dsconv launches {launches} (stride 1: {by_stride[1]}, stride 2: "
+        f"{by_stride[2]})")
+    if len(rows) != len(probe_dsconv.STAGES) or \
+            not all(np.isfinite(r["maxdiff"]) for r in rows):
+        raise SystemExit(f"probe: expected {len(probe_dsconv.STAGES)} "
+                         f"stages with finite outputs, got {rows}")
+    if launches <= 0 or min(by_stride.values()) <= 0:
+        raise SystemExit(f"probe: the dsconv kernel did not launch at both "
+                         f"strides ({by_stride})")
+    return by_stride
+
+
 def main() -> int:
     try:
         import torch
@@ -525,11 +860,15 @@ def main() -> int:
 
     phase_build()
     entry = phase_kernel(dev)
+    ds_entries = phase_dsconv(dev)
     phase_tracker(dev)
     phase_reference(dev)
     launches, _ = phase_slice(dev)
     entry["launches"] = launches
-    log(json.dumps({"kernels": [entry]}))
+    by_stride = phase_probe(dev)
+    for e, s in zip(ds_entries, (1, 2)):
+        e["launches"] = by_stride[s]
+    log(json.dumps({"kernels": [entry] + ds_entries}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)

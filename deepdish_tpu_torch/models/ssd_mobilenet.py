@@ -65,6 +65,25 @@ class _DepthwiseSeparable(nn.Module):
         x = _relu6(self.dw_bn(self.dw(x)))
         return _relu6(self.pw_bn(self.pw(x)))
 
+    def fused_args(self):
+        """This block as `ops.dsconv.fused_dsconv` takes it (NHWC layouts,
+        batch norms folded with `fold_bn`): (dw_k (3, 3, Cin), dw_scale,
+        dw_bias, pw_k (Cin, Cout), pw_scale, pw_bias), on the block's
+        device, the vectors float32."""
+        # ops.dsconv imports models.layers, so it is imported here
+        from ..ops.dsconv import fold_bn
+        dev = self.dw.weight.device
+
+        def fold(bn):
+            s, b = fold_bn(*(t.detach().double().cpu().numpy() for t in (
+                bn.weight, bn.bias, bn.running_mean, bn.running_var)),
+                eps=bn.eps)
+            return tuple(torch.tensor(v, dtype=torch.float32, device=dev)
+                         for v in (s, b))
+        dw_k = self.dw.weight.detach()[:, 0].permute(1, 2, 0).contiguous()
+        pw_k = self.pw.weight.detach()[:, :, 0, 0].t().contiguous()
+        return (dw_k, *fold(self.dw_bn), pw_k, *fold(self.pw_bn))
+
 
 class SSDMobileNetV1(nn.Module):
     """(N, 300, 300, 3) NHWC in [0, 255] -> (box_encodings (N, A, 4),

@@ -1,6 +1,7 @@
 """Tests of the port that need a CUDA card: the hand-written LSAP kernel
-against its plain version and scipy, its wrapper's checks, and the tracker
-and frame step on the card against the CPU. They skip without a card, and
+against its plain version and scipy, the fused depthwise-separable kernel
+against its plain version, their wrappers' checks, and the tracker and frame
+step on the card against the CPU. They skip without a card, and
 import nothing of JAX. On the GPU machine:
 
     python -m pytest -m gpu tests/test_torch_*.py
@@ -13,6 +14,7 @@ import torch
 from scipy.optimize import linear_sum_assignment
 
 from deepdish_tpu_torch.ops.assignment import solve_lsap_plain
+from deepdish_tpu_torch.ops.dsconv import dsconv_plain, reorder_tolerance
 
 pytestmark = pytest.mark.gpu
 
@@ -136,3 +138,69 @@ def test_framestep_on_the_card(cuda):
     assert outs.track_id.shape == (6, 16) and snaps.tlwh.shape == (6, 8, 4)
     assert bool(torch.isfinite(outs.tlwh).all())
     assert (state.table.state != 0).any() and (state2.table.state != 0).any()
+
+
+def _dsconv_args(rng, b, h, w, cin, cout, dtype, device):
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    return (f32(rng.standard_normal((b, h, w, cin))).to(dtype),
+            f32(rng.standard_normal((3, 3, cin)) * 0.2),
+            f32(rng.random(cin) + 0.5), f32(rng.standard_normal(cin) * 0.1),
+            f32(rng.standard_normal((cin, cout)) * 0.2),
+            f32(rng.random(cout) + 0.5), f32(rng.standard_normal(cout) * 0.1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_dsconv_kernel_matches_plain(cuda, stride, dtype):
+    """f32 within the JAX kernel test's atol 2e-5 / rtol 1e-5; bf16 within
+    the bound on reordering the f32 pointwise sum (the only difference);
+    and the intermediate bit-equal: with an identity pointwise
+    kernel, unit scale and zero bias the output is the rounded intermediate
+    itself."""
+    from deepdish_tpu_torch.kernels import dsconv
+    rng = np.random.default_rng(4 + stride)
+    for b, h, w, cin, cout in [(2, 10, 12, 8, 16), (2, 11, 13, 8, 16),
+                               (2, 9, 9, 16, 8), (1, 75, 75, 40, 72),
+                               (2, 19, 19, 96, 130)]:
+        a = _dsconv_args(rng, b, h, w, cin, cout, dtype, cuda)
+        before = dsconv.launches
+        got = dsconv.fused(*a, stride=stride)
+        torch.cuda.synchronize()
+        assert dsconv.launches == before + 1
+        want = dsconv_plain(*a, stride=stride)
+        assert got.dtype == dtype and got.shape == want.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-5)
+        else:
+            tol = reorder_tolerance(got, want, *a, stride=stride)
+            assert bool(((got.float() - want.float()).abs() <= tol).all())
+        ident = (a[0], a[1], a[2], a[3],
+                 torch.eye(cin, device=cuda), torch.ones(cin, device=cuda),
+                 torch.zeros(cin, device=cuda))
+        assert torch.equal(dsconv.fused(*ident, stride=stride),
+                           dsconv_plain(*ident, stride=stride))
+
+
+def test_dsconv_wrapper_refuses_what_the_kernel_cannot_take(cuda):
+    from deepdish_tpu_torch.kernels import dsconv
+    a = _dsconv_args(np.random.default_rng(0), 1, 6, 6, 8, 16,
+                     torch.float32, cuda)
+    before = dsconv.launches
+    with pytest.raises(ValueError):
+        dsconv.fused(*a, stride=3)
+    with pytest.raises(TypeError):
+        dsconv.fused(a[0].half(), *a[1:])
+    with pytest.raises(TypeError):
+        dsconv.fused(a[0], a[1], a[2].double(), *a[3:])
+    with pytest.raises(ValueError):
+        dsconv.fused(a[0][0], *a[1:])
+    with pytest.raises(ValueError):
+        dsconv.fused(a[0], a[1][:, :, :4], *a[2:])
+    with pytest.raises(ValueError):
+        dsconv.fused(a[0], *a[1:4], a[4][:4], *a[5:])
+    with pytest.raises(ValueError):
+        dsconv.fused(a[0].transpose(1, 2), *a[1:])
+    with pytest.raises(ValueError):
+        dsconv.fused(a[0].cpu(), *a[1:])
+    assert dsconv.launches == before

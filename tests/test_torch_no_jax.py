@@ -51,7 +51,9 @@ def test_no_jax_imports(path):
 def test_import_pulls_no_jax():
     code = ("import sys, deepdish_tpu_torch.pipeline, "
             "deepdish_tpu_torch.models, deepdish_tpu_torch.kernels.lsap, "
-            "deepdish_tpu_torch.pipeline.counting\n"
+            "deepdish_tpu_torch.pipeline.counting, "
+            "deepdish_tpu_torch.kernels.dsconv, deepdish_tpu_torch.ops.dsconv, "
+            "deepdish_tpu_torch.tools.probe_dsconv\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'deepdish_tpu')]\n"
             "assert not bad, bad\n")
@@ -65,6 +67,7 @@ def test_entry_points_need_cuda_unless_cpu():
     from deepdish_tpu_torch.models import (create_box_encoder,
                                            create_detector)
     from deepdish_tpu_torch.pipeline import FrameStep
+    from deepdish_tpu_torch.tools import probe_dsconv
     cfg = pt.TrackerConfig(max_tracks=4, max_detections=2, feature_dim=128,
                            gallery_size=8, pending_size=2)
     det = create_detector("ssd_mobilenet", device="cpu")
@@ -77,7 +80,8 @@ def test_entry_points_need_cuda_unless_cpu():
                  lambda: create_box_encoder("mars"),
                  lambda: create_box_encoder("dummy"),
                  lambda: pt.create_table(cfg),
-                 lambda: FrameStep(det, enc, cfg, ["person"], (32, 48))):
+                 lambda: FrameStep(det, enc, cfg, ["person"], (32, 48)),
+                 lambda: probe_dsconv.main([])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 
@@ -90,3 +94,14 @@ def test_lsap_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         lsap.solve(costs, sizes)
     assert lsap.launches == before
+
+
+def test_dsconv_wrapper_refuses_cpu_tensors():
+    from deepdish_tpu_torch.kernels import dsconv
+    x = torch.zeros((1, 4, 4, 8))
+    weights = (torch.zeros((3, 3, 8)), torch.ones(8), torch.zeros(8),
+               torch.zeros((8, 16)), torch.ones(16), torch.zeros(16))
+    before = dsconv.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        dsconv.fused(x, *weights, stride=1)
+    assert dsconv.launches == before
