@@ -14,15 +14,22 @@ failure:
              matrices at K in {8, 33, 64} (random, tie-heavy, clamped, wide,
              tall, empty, full, and one batched call): 0 mismatches; then
              kernel and plain times at K = 64, B = 1 with CUDA events;
-  3. dsconv  the CUDA fused depthwise-separable kernel against its plain
-             PyTorch version on the card, f32 and bf16, both strides: the
-             JAX kernel test's shapes, 75x75 odd, the nine probe STAGES at
-             batch 2 (and at batch 32 in bf16, the probe's own inputs), and
-             the SSD's 13 ds blocks at batch 1 with weights folded from a
-             random-init port SSDMobileNetV1 (also held against each module's
-             f32 forward); f32 within atol 2e-5 + rtol 1e-5, bf16 within one
-             ulp, the intermediate bit-equal; then kernel, plain, cuDNN 2-conv
-             and bound per stage at batch 32 and per SSD block at batch 1;
+  3. dsconv  ptxas's registers, spills and serialization warnings and the
+             dynamic shared memory of each kernel of dsconv.cu (a spill
+             fails the phase); then the CUDA fused depthwise-separable
+             kernels against their plain PyTorch version on the card, f32
+             and bf16, both strides: the JAX kernel test's shapes, 75x75
+             odd, the bf16 kernel's paths (ds13 and ds7 at batch 1, whose
+             launch plans split K; Cin = Cout = 8, zero-padded K and N;
+             Cin = 40; Cin = 12, scalar taps; M not a multiple of the tile),
+             the nine probe STAGES at batch 2 (and at batch 32 in bf16, the
+             probe's own inputs), and the SSD's 13 ds blocks at batch 1 with
+             weights folded from a random-init port SSDMobileNetV1 (also
+             held against each module's f32 forward); f32 within atol 2e-5 +
+             rtol 1e-5, bf16 within ops.dsconv.reorder_tolerance (the bound
+             on reordering the f32 pointwise sum), the intermediate
+             bit-equal; then kernel, plain, cuDNN 2-conv and bound, with the
+             launch plan, per stage at batch 32 and per SSD block at batch 1;
   4. tracker tracker.step at T=64, D=32, G=128, F=128 over a seeded
              countline scene, on the card (kernel) and on the CPU (plain):
              identical ids, states and matched_det on every frame, and the
@@ -243,7 +250,12 @@ def phase_kernel(dev):
 # (batch, H, W, Cin, Cout, stride)
 DSCONV_SHAPES = [(2, 10, 12, 8, 16, 1), (2, 11, 13, 8, 16, 2),
                  (2, 10, 12, 8, 16, 2), (2, 9, 9, 16, 8, 1),
-                 (1, 75, 75, 16, 32, 1), (1, 75, 75, 16, 32, 2)]
+                 (1, 75, 75, 16, 32, 1), (1, 75, 75, 16, 32, 2),
+                 # the bf16 kernel's paths: K split at batch 1 (ds13, ds7),
+                 # K and N padded, a 5-chunk slice, scalar taps, ragged M
+                 (1, 10, 10, 1024, 1024, 1), (1, 19, 19, 512, 512, 1),
+                 (1, 9, 9, 8, 8, 1), (2, 19, 19, 40, 72, 2),
+                 (3, 7, 7, 12, 24, 1)]
 # the two timed shapes: the compute-bound and the bytes-bound extreme
 DSCONV_TIMED = {1: "ds13", 2: "ds2"}
 
@@ -348,6 +360,42 @@ def _dsconv_bound(b, h, w, cin, cout, stride, elem=2):
                                    else "operations")
 
 
+def _plan_str(b, h, w, cin, cout, stride):
+    from deepdish_tpu_torch.kernels import dsconv
+    p = dsconv.plan(b, h, w, cin, cout, stride)
+    return (f"[{dsconv.BLOCK_M}x{p.block_n}, K {p.k_splits}x{p.k_chunk}, "
+            f"{p.grid} blocks]")
+
+
+def _dsconv_build_report():
+    """ptxas's lines of each kernel of dsconv.cu, the bf16 blocks' dynamic
+    shared memory, and the count of wgmma serialization warnings (C7515);
+    a kernel that spills fails the phase."""
+    import re
+
+    from deepdish_tpu_torch.kernels import _build, dsconv
+    name, spills = None, []
+    lines = _build.ptxas_report("dsconv").splitlines()
+    for line in lines:
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:   # e.g. dsconv_bf16_kernel<256, 2>: block_n, stride
+            kind = re.search(r"(dsconv_(?:bf16_kernel|f32_kernel|splitk_"
+                             r"epilogue))(?:I((?:Li\d+E)+)E)?",
+                             entry.group(1))
+            args = re.findall(r"Li(\d+)E", kind.group(2) or "")
+            name = kind.group(1) + (f"<{', '.join(args)}>" if args else "")
+        elif name and ("registers" in line or "spill" in line):
+            log(f"[dsconv] ptxas {name}: {line.split(':', 1)[-1].strip()}")
+            if re.search(r"[1-9]\d* bytes spill", line):
+                spills.append(name)
+    log("[dsconv] bf16 dynamic shared memory per block: " + ", ".join(
+        f"{bn} wide {dsconv.smem_bytes(bn)} B" for bn in (64, 128, 256)) +
+        f"; wgmma serialization warnings (C7515): "
+        f"{sum('C7515' in line for line in lines)}")
+    if spills:
+        raise SystemExit(f"dsconv: ptxas spills registers in {spills}")
+
+
 def _graph_ms(fn, reps):
     """Time of one call (ms) with the host taken out: `reps` calls captured
     in one CUDA graph, the graph replayed under CUDA events."""
@@ -422,6 +470,7 @@ def _ssd_blocks(dev, tally):
                     lambda: dsconv_reference(x16, *ws, stride),
                     lambda: mod16(x16n))
             rows.append((f"ds{k}", h, cin, cout, stride,
+                         _plan_str(1, h, w, cin, cout, stride),
                          [_time_cuda(f, 100) for f in legs],
                          [_graph_ms(f, 20) for f in legs],
                          _dsconv_bound(1, h, w, cin, cout, stride)[0], span))
@@ -434,12 +483,12 @@ def _ssd_blocks(dev, tally):
         "included) | CUDA-graph replay of 20 calls (host taken out) | bound "
         "(output range)")
     tot = np.zeros(6)
-    for name, h, cin, cout, s, event, device, b_ms, span in rows:
+    for name, h, cin, cout, s, plan, event, device, b_ms, span in rows:
         tot += event + device
         log(f"[dsconv]   {name:5s} {h:3d}^2 {cin:4d}->{cout:4d} s{s}: "
             + " / ".join(f"{t:.5f}" for t in event) + " | "
             + " / ".join(f"{t:.5f}" for t in device) + f" | {b_ms:.5f} "
-            f"({span:.3f})")
+            f"({span:.3f}) {plan}")
     log("[dsconv]   sum of 13: " + " / ".join(f"{t:.5f}" for t in tot[:3])
         + " | " + " / ".join(f"{t:.5f}" for t in tot[3:]))
 
@@ -452,6 +501,7 @@ def phase_dsconv(dev):
     from deepdish_tpu_torch.ops.dsconv import dsconv_plain, dsconv_reference
     from deepdish_tpu_torch.tools.probe_dsconv import STAGES
 
+    _dsconv_build_report()
     rng = np.random.default_rng(SEED + 4)
     tally = _new_tally()
     for dtype in (torch.float32, torch.bfloat16):
@@ -478,16 +528,27 @@ def phase_dsconv(dev):
     if any(tally[s]["mismatches"] for s in (1, 2)):
         raise SystemExit("dsconv kernel check failed")
 
-    log("[dsconv] batch 32 bf16, ms per block (CUDA events, 20 calls): "
-        "stage: kernel / cudnn 2-conv / bound (bound by)")
+    log("[dsconv] batch 32 bf16, ms per block: stage: kernel / cudnn "
+        "2-conv (CUDA events over 20 eager calls) | kernel / cudnn 2-conv "
+        "(CUDA-graph replay of 20 calls: device time) | bound (bound by) "
+        "[launch plan] {kernel at block_n 64 / 128 / 256 with K whole, "
+        "eager: the plan's choice of width}")
     entries = {}
     for label, h, w, cin, cout, s in STAGES:
         args = _probe_inputs(rng, 32, h, w, cin, cout, dev)
         kernel_ms = _time_cuda(lambda: dsconv.fused(*args, s), 20)
         library_ms = _time_cuda(lambda: dsconv_reference(*args, s), 20)
         bound_ms, bound_by = _dsconv_bound(32, h, w, cin, cout, s)
-        log(f"[dsconv]   {label}: {kernel_ms:.5f} / {library_ms:.5f} / "
-            f"{bound_ms:.5f} ({bound_by})")
+        m = 32 * -(-h // s) * -(-w // s)
+        widths = [_time_cuda(lambda: dsconv.fused(
+            *args, s, launch_plan=dsconv.Plan(m, cout, cin, bn, 16 * -(
+                -cin // 16))), 20) for bn in (64, 128, 256)]
+        graphs = [_graph_ms(lambda: dsconv.fused(*args, s), 20),
+                  _graph_ms(lambda: dsconv_reference(*args, s), 20)]
+        log(f"[dsconv]   {label}: {kernel_ms:.5f} / {library_ms:.5f} | "
+            f"{graphs[0]:.5f} / {graphs[1]:.5f} | {bound_ms:.5f} "
+            f"({bound_by}) {_plan_str(32, h, w, cin, cout, s)} {{"
+            + " / ".join(f"{t:.5f}" for t in widths) + "}")
         if label.startswith(DSCONV_TIMED[s]):
             plain_ms = _time_cuda(lambda: dsconv_plain(*args, s), 5)
             kernel_ms = min(kernel_ms,

@@ -7,19 +7,22 @@ into a shared library (no PyTorch headers, so a build takes seconds):
          -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so csrc/<name>.cu
 
 The library lands in `deepdish_tpu_torch/_build/`, named by a hash of the
-source and the flags, so an edited source is rebuilt at its next use and an
-unchanged one is loaded as built. Nothing is built at import time: the first
-call of a kernel's wrapper builds it. Fast math stays off: the kernels'
+source, every header in `csrc/` (`*.cuh`, which the sources include) and the
+flags, so an edited source or header is rebuilt at its next use and an
+unchanged one is loaded as built. The kernels use inline PTX only (wgmma,
+cp.async): no TMA descriptor, so no -lcuda, and no CUTLASS headers. Nothing
+is built at import time: the first call of a kernel's wrapper builds it. Fast math stays off: the kernels'
 results must match their plain versions bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict
+from typing import Dict, List
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -44,14 +47,20 @@ def _nvcc() -> str:
                        "deepdish_tpu_torch's kernels")
 
 
+def _headers() -> List[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, built first if its hashed
     library is missing."""
     if name not in _LOADED:
         src = os.path.join(CSRC, f"{name}.cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                    ).hexdigest()[:16]
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for path in [src] + _headers():
+            with open(path, "rb") as f:
+                digest.update(f.read())
+        digest = digest.hexdigest()[:16]
         so = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
         if not os.path.exists(so):
             os.makedirs(BUILD_DIR, exist_ok=True)

@@ -15,7 +15,9 @@ import jax.numpy as jnp
 import torch
 
 from deepdish_tpu.ops import dsconv_pallas as jds
-from deepdish_tpu_torch.models.ssd_mobilenet import _DepthwiseSeparable
+from deepdish_tpu_torch.kernels import dsconv as kds
+from deepdish_tpu_torch.models.ssd_mobilenet import (_BACKBONE, INPUT_SIZE,
+                                                     _DepthwiseSeparable)
 from deepdish_tpu_torch.ops import dsconv as pds
 from deepdish_tpu_torch.tools import probe_dsconv
 
@@ -102,6 +104,79 @@ def test_reorder_tolerance_covers_the_kernels_sum_order(cin, cout, stride):
     seq = (y * a[5] + a[6]).clamp(0.0, 6.0).bfloat16()
     tol = pds.reorder_tolerance(seq, want, x, *a[1:], stride=stride)
     assert bool(((seq.float() - want.float()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("cin,cout,stride,k_chunk", [
+    (256, 48, 1, 96), (1024, 16, 2, 128), (40, 24, 1, 16), (512, 32, 2, 512)])
+def test_reorder_tolerance_covers_the_wgmma_sum_order(cin, cout, stride,
+                                                      k_chunk):
+    """The bf16 kernel's order (csrc/dsconv.cu): exact bf16 products summed
+    16 at a time per wgmma k16 step (modelled by a sum of 16 in f32), the
+    steps added in turn into the f32 accumulator, then the K splits of
+    k_chunk channels added in split order. That order too stays within
+    reorder_tolerance of dsconv_plain's matmul."""
+    a = _torch(_block_args(np.random.default_rng(cin + cout), 2, 7, 9, cin,
+                           cout))
+    x = a[0].bfloat16()
+    want = pds.dsconv_plain(x, *a[1:], stride=stride)
+    ones = torch.ones(cin)
+    mid = pds.dsconv_plain(x, *a[1:4], torch.eye(cin), ones,
+                           torch.zeros(cin), stride=stride).float()
+    pw = a[4].bfloat16().float()
+    prod = mid[..., :, None] * pw                        # exact in f32
+    partials = []
+    for k0 in range(0, cin, k_chunk):
+        chunk = prod[..., k0:k0 + k_chunk, :]
+        pad = -chunk.shape[-2] % 16                      # zero-padded K
+        chunk = torch.nn.functional.pad(chunk, (0, 0, 0, pad))
+        steps = chunk.unflatten(-2, (-1, 16)).sum(-2)    # one wgmma step
+        partials.append(steps.cumsum(-2)[..., -1, :])
+    y = torch.stack(partials).cumsum(0)[-1]
+    got = (y * a[5] + a[6]).clamp(0.0, 6.0).bfloat16()
+    tol = pds.reorder_tolerance(got, want, x, *a[1:], stride=stride)
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+def _ssd_blocks():
+    """The port SSD's 13 ds blocks as (H, Cin, Cout, stride) at 300x300."""
+    h, cin, out = -(-INPUT_SIZE // 2), 32, []
+    for cout, stride in _BACKBONE:
+        out.append((h, cin, cout, stride))
+        h, cin = -(-h // stride), cout
+    return out
+
+
+@pytest.mark.parametrize(
+    "b,h,cin,cout,stride",
+    [(1,) + blk for blk in _ssd_blocks()] +
+    [(32, h, cin, cout, s) for _, h, _, cin, cout, s in probe_dsconv.STAGES])
+def test_launch_plan_covers_every_output_once(b, h, cin, cout, stride):
+    """kernels.dsconv.plan at the SSD's 13 blocks at batch 1 and the probe's
+    9 stages at batch 32 (no card, no nvcc): its blocks, mapped as the
+    kernel maps blockIdx.x, cover every (pixel, output channel, input
+    channel) once; K splits are whole wgmma steps (multiples of 16, the
+    last one padded); the grid fills a wave of MIN_BLOCKS wherever the
+    tiles and Cin / 16 allow it."""
+    p = kds.plan(b, h, h, cin, cout, stride)
+    ho = -(-h // stride)
+    assert p.m == b * ho * ho and (p.cin, p.cout) == (cin, cout)
+    assert p.block_n in (64, 128, 256) and p.k_chunk % 16 == 0
+    blocks = [p.block(i) for i in range(p.grid)]
+    assert len(set(blocks)) == p.grid
+    m0s = sorted({m0 for m0, _, _, _ in blocks})
+    n0s = sorted({n0 for _, n0, _, _ in blocks})
+    ks = sorted({(k0, k1) for _, _, k0, k1 in blocks})
+    assert m0s == list(range(0, p.m, kds.BLOCK_M))
+    assert n0s == list(range(0, cout, p.block_n))
+    assert ks[0][0] == 0 and ks[-1][1] == cin
+    assert all(k1 == k0n for (_, k1), (k0n, _) in zip(ks, ks[1:]))
+    assert all(k0 < k1 and k0 % 16 == 0 for k0, k1 in ks)
+    assert len(blocks) == len(m0s) * len(n0s) * len(ks)
+    tiles = len(m0s) * len(n0s)
+    if tiles * -(-cin // 16) >= kds.MIN_BLOCKS:
+        assert p.grid >= kds.MIN_BLOCKS
+    if tiles >= kds.MIN_BLOCKS:
+        assert p.k_splits == 1          # no split where the tiles fill a wave
 
 
 def test_fold_bn_matches_batchnorm():

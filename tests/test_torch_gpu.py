@@ -157,12 +157,18 @@ def test_dsconv_kernel_matches_plain(cuda, stride, dtype):
     the bound on reordering the f32 pointwise sum (the only difference);
     and the intermediate bit-equal: with an identity pointwise
     kernel, unit scale and zero bias the output is the rounded intermediate
-    itself."""
+    itself. The shapes take every path of the bf16 kernel: ds13 and ds7 at
+    batch 1 (K split across blocks), Cin = Cout = 8 (K and N zero-padded),
+    Cin = 40 (a slice of 5 channel chunks), Cin = 12 (not a multiple of 8:
+    scalar taps), Cout = 130 (scalar weight rows), M not a multiple of the
+    64-pixel tile."""
     from deepdish_tpu_torch.kernels import dsconv
     rng = np.random.default_rng(4 + stride)
     for b, h, w, cin, cout in [(2, 10, 12, 8, 16), (2, 11, 13, 8, 16),
                                (2, 9, 9, 16, 8), (1, 75, 75, 40, 72),
-                               (2, 19, 19, 96, 130)]:
+                               (2, 19, 19, 96, 130), (1, 10, 10, 1024, 1024),
+                               (1, 19, 19, 512, 512), (1, 9, 9, 8, 8),
+                               (3, 7, 7, 12, 24)]:
         a = _dsconv_args(rng, b, h, w, cin, cout, dtype, cuda)
         before = dsconv.launches
         got = dsconv.fused(*a, stride=stride)
@@ -180,6 +186,29 @@ def test_dsconv_kernel_matches_plain(cuda, stride, dtype):
                  torch.zeros(cin, device=cuda))
         assert torch.equal(dsconv.fused(*ident, stride=stride),
                            dsconv_plain(*ident, stride=stride))
+
+
+def test_dsconv_bf16_launch_plans_agree(cuda):
+    """The bf16 kernel under every block width and several K splits, on a
+    shape whose default plan uses neither 256 nor a split: each within the
+    reorder tolerance of the plain version, one counted launch per call."""
+    from deepdish_tpu_torch.kernels import dsconv
+    rng = np.random.default_rng(7)
+    a = _dsconv_args(rng, 2, 19, 19, 96, 300, torch.bfloat16, cuda)
+    want = dsconv_plain(*a, stride=1)
+    m = 2 * 19 * 19
+    for block_n in (64, 128, 256):
+        for k_chunk in (16, 48, 96):
+            before = dsconv.launches
+            got = dsconv.fused(*a, stride=1, launch_plan=dsconv.Plan(
+                m, 300, 96, block_n, k_chunk))
+            torch.cuda.synchronize()
+            assert dsconv.launches == before + 1
+            tol = reorder_tolerance(got, want, *a, stride=1)
+            assert bool(((got.float() - want.float()).abs() <= tol).all())
+    with pytest.raises(ValueError):
+        dsconv.fused(*a, stride=1,
+                     launch_plan=dsconv.Plan(m, 300, 96, 128, 24))
 
 
 def test_dsconv_wrapper_refuses_what_the_kernel_cannot_take(cuda):
