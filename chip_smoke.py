@@ -7,13 +7,21 @@ Needs one CUDA card (an H100, sm_90a), nvcc and scipy. Phases, each fatal on
 failure:
 
   1. build   every kernel in deepdish_tpu_torch/csrc/ (lsap, dsconv: one nvcc
-             each, all started together); print build seconds and ptxas's
-             register and shared-memory lines;
-  2. kernel  the CUDA LSAP against the plain PyTorch LSAP on the card and
-             scipy.optimize.linear_sum_assignment on the host, >= 200
-             matrices at K in {8, 33, 64} (random, tie-heavy, clamped, wide,
-             tall, empty, full, and one batched call): 0 mismatches; then
-             kernel and plain times at K = 64, B = 1 with CUDA events;
+             each, all started together); print build seconds;
+  2. kernel  ptxas's registers and spills of each instance of lsap.cu's
+             warp-per-matrix kernel (Q = 1..8; a spill fails the phase);
+             the CUDA LSAP against the plain PyTorch LSAP on the card and
+             scipy.optimize.linear_sum_assignment on the host, over
+             matrices at K in {1, 8, 32, 33, 64, 65, 128, max_capacity()}
+             (random, tie-heavy, clamped, wide, tall, empty, full), each
+             alone and in one batched call per K, and two batches of 301
+             and 290, more one-warp blocks than SMs: 0 mismatches; then at
+             K = 64 (1x1, the 32x32 clamped timed input, 24x24 clamped,
+             32x64, 64x64, 16 x 32x32) the device time (CUDA-graph
+             replay), the eager round trip (solve + synchronize, host
+             clock) and CUDA events over eager calls, beside the Dijkstra
+             steps of each input (a numpy replica of scipy's loop, checked
+             against scipy) and us a step; the plain version's time;
   3. dsconv  ptxas's registers, spills and serialization warnings and the
              dynamic shared memory of each kernel of dsconv.cu (a spill
              fails the phase); then the CUDA fused depthwise-separable
@@ -90,10 +98,6 @@ def phase_build():
         f"{time.perf_counter() - t0:.2f} s")
     for name in KERNELS:
         log(f"[build] {name}: built (or loaded) in {secs[name]:.2f} s")
-        for line in _build.ptxas_report(name).splitlines():
-            if any(k in line for k in ("Compiling entry", "registers",
-                                       "smem", "spill")):
-                log(f"[build] {name}: {line.strip()}")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -169,76 +173,259 @@ def _time_cuda(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _lsap_more_cases(rng, ks):
+    """Cases at the K values past the tracker's: fewer above K = 64, where
+    the plain solver on the card is slow; every orientation, ties, the
+    tracker's clamp, full and empty."""
+    dyadic = np.array([0.125, 0.25, 0.25 + 2.0 ** -12, 0.75], np.float32)
+    cases = []
+    for K in ks:
+        n = 2 if K > 64 else 4
+
+        def any_shape():
+            return rng.randint(1, K + 1), rng.randint(1, K + 1)
+        shapes = [(kind,) + any_shape() for kind in ("random", "ties",
+                                                     "clamped")
+                  for _ in range(n)]
+        shapes += [("clamped", K, K), ("random", K, K), ("ties", K, K),
+                   ("empty", 0, K), ("empty", K, 0), ("empty", 0, 0)]
+        if K > 1:
+            r, c = rng.randint(2, K + 1), rng.randint(2, K + 1)
+            shapes += [("clamped", r, rng.randint(1, r)),
+                       ("random", rng.randint(1, c), c)]
+        for kind, r, c in shapes:
+            cases.append((K, r, c, _lsap_cost(rng, kind, r, c, dyadic)))
+    return cases
+
+
+def _lsap_cost(rng, kind, r, c, dyadic=None):
+    if kind == "ties":
+        return rng.choice(dyadic, size=(r, c)).astype(np.float32)
+    if kind == "clamped":
+        cost = rng.uniform(0.0, 0.4, size=(r, c)).astype(np.float32)
+        cost[cost > 0.2] = np.float32(0.2 + 1e-5)
+        return cost
+    return rng.uniform(0.0, 1.0, size=(r, c)).astype(np.float32)
+
+
+def _sap_steps(cost):
+    """scipy's shortest augmenting path (rectangular_lsap.cpp), replicated
+    in numpy on the float64 cost: (row -> col assignment, Dijkstra steps).
+    The steps are what a solve of this input walks through serially."""
+    cost = np.asarray(cost, np.float64)
+    transposed = cost.shape[0] > cost.shape[1]
+    if transposed:
+        cost = cost.T
+    nr, nc = cost.shape
+    u, v = np.zeros(nr), np.zeros(nc)
+    col4row = np.full(nr, -1)
+    row4col = np.full(nc, -1)
+    steps = 0
+    for cur_row in range(nr):
+        spc = np.full(nc, np.inf)
+        path = np.full(nc, -1)
+        sr = np.zeros(nr, bool)
+        sc = np.zeros(nc, bool)
+        remaining = np.arange(nc)[::-1].copy()
+        num_rem, i, min_val, sink = nc, cur_row, 0.0, -1
+        while sink < 0:
+            steps += 1
+            sr[i] = True
+            rem = remaining[:num_rem]
+            r = min_val + cost[i, rem] - u[i] - v[rem]
+            better = r < spc[rem]
+            path[rem[better]] = i
+            spc[rem[better]] = r[better]
+            vals = spc[rem]
+            tied = np.flatnonzero(vals == vals.min())
+            unm = tied[row4col[rem[tied]] < 0]
+            index = unm[-1] if unm.size else tied[0]
+            min_val = vals[index]
+            j = remaining[index]
+            if row4col[j] < 0:
+                sink = j
+            else:
+                i = row4col[j]
+            sc[j] = True
+            remaining[index] = remaining[num_rem - 1]
+            num_rem -= 1
+        u[cur_row] += min_val
+        rows = np.flatnonzero(sr & (np.arange(nr) != cur_row))
+        u[rows] += min_val - spc[col4row[rows]]
+        v[sc] -= min_val - spc[sc]
+        j = sink
+        while True:
+            i = path[j]
+            row4col[j] = i
+            col4row[i], j = j, col4row[i]
+            if i == cur_row:
+                break
+    if transposed:                       # rows of the solve are columns
+        return {int(c): i for i, c in enumerate(col4row)}, steps
+    return {i: int(c) for i, c in enumerate(col4row)}, steps
+
+
+def _round_trip_ms(fn, reps):
+    """What a caller that reads the answer waits for: host clock over
+    `fn` + torch.cuda.synchronize(), after warm-up (ms a call)."""
+    import torch
+    for _ in range(10):
+        fn()
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _lsap_build_report():
+    """ptxas's lines of each instance of the LSAP kernel (Q = 1..8); a
+    spill fails the phase."""
+    spills = _ptxas_kernels("lsap", "lsap_kernel", "kernel")
+    if spills:
+        raise SystemExit(f"lsap: ptxas spills registers in {spills}")
+
+
+def _check_lsap(dev, K, sel, singles):
+    """The (r, c, cost) matrices of one K in one batched kernel call and,
+    with `singles`, one call each, against one batched call of the plain
+    solver on the card and against scipy. Returns (mismatches, largest
+    |kernel - plain| column index)."""
+    import torch
+    from deepdish_tpu_torch.kernels import lsap
+    from deepdish_tpu_torch.ops.assignment import solve_lsap_plain
+    costs = torch.tensor(np.stack([_pad(K, cost) for _, _, cost in sel]),
+                         device=dev)
+    sizes = torch.tensor([[r, c] for r, c, _ in sel], dtype=torch.int32,
+                         device=dev)
+    plain = solve_lsap_plain(costs, sizes).cpu().numpy()
+    want = np.stack([_scipy_assign(K, cost) for _, _, cost in sel])
+    runs = [lsap.solve(costs, sizes).cpu().numpy()]
+    if singles:
+        runs.append(np.stack([lsap.solve(costs[n:n + 1], sizes[n:n + 1])[0]
+                              .cpu().numpy() for n in range(len(sel))]))
+    bad, err = np.zeros(len(sel), bool), 0.0
+    for got in runs:
+        err = max(err, float(np.abs(got.astype(np.int64) - plain).max()))
+        bad |= ~((got == plain).all(1) & (got == want).all(1))
+    for n in np.flatnonzero(bad)[:5]:
+        r, c, _ = sel[n]
+        log(f"[kernel] MISMATCH K={K} shape=({r},{c})\n "
+            + "\n ".join(f"kernel {g[n]}" for g in runs)
+            + f"\n plain  {plain[n]}\n scipy  {want[n]}")
+    return int(bad.sum()), err
+
+
 def phase_kernel(dev):
     import torch
     from deepdish_tpu_torch.kernels import lsap
     from deepdish_tpu_torch.ops.assignment import solve_lsap_plain
 
+    _lsap_build_report()
+    cap = lsap.max_capacity()
+    if cap < 236:
+        raise SystemExit(f"lsap: capacity {cap} below the 236 of the "
+                         "block-per-matrix design")
     rng = np.random.RandomState(SEED)
     cases = _lsap_cases(rng)
-    mismatches = 0
-    max_abs_err = 0.0           # largest |kernel - plain| column index
-    for K, r, c, cost in cases:
-        costs = torch.tensor(_pad(K, cost)[None], device=dev)
-        sizes = torch.tensor([[r, c]], dtype=torch.int32, device=dev)
-        got = lsap.solve(costs, sizes)[0].cpu().numpy()
-        plain = solve_lsap_plain(costs, sizes)[0].cpu().numpy()
-        want = _scipy_assign(K, cost)
-        max_abs_err = max(max_abs_err, float(np.abs(
-            got.astype(np.int64) - plain).max()))
-        if not (np.array_equal(got, plain) and np.array_equal(got, want)):
-            mismatches += 1
-            log(f"[kernel] MISMATCH K={K} shape=({r},{c})\n kernel {got}\n"
-                f" plain  {plain}\n scipy  {want}")
-    # one batched call per K, mixing every shape of that K
-    batched = 0
-    for K in (8, 33, 64):
+    # the timed input, drawn right after the cases as it always was, so
+    # that its times compare across versions of the kernel
+    timed_32 = rng.uniform(0.0, 0.4, size=(32, 32)).astype(np.float32)
+    timed_32[timed_32 > 0.2] = np.float32(0.2 + 1e-5)
+    more = np.random.RandomState(SEED + 7)
+    cases += _lsap_more_cases(more, (1, 32, 65, 128, cap))
+    mismatches, max_abs_err, counted = 0, 0.0, {}
+    for K in sorted({k for k, _, _, _ in cases}):
         sel = [(r, c, cost) for k, r, c, cost in cases if k == K]
-        costs = torch.tensor(np.stack([_pad(K, cost) for _, _, cost in sel]),
-                             device=dev)
-        sizes = torch.tensor([[r, c] for r, c, _ in sel], dtype=torch.int32,
-                             device=dev)
-        got = lsap.solve(costs, sizes).cpu().numpy()
-        plain = solve_lsap_plain(costs, sizes).cpu().numpy()
-        want = np.stack([_scipy_assign(K, cost) for _, _, cost in sel])
-        max_abs_err = max(max_abs_err, float(np.abs(
-            got.astype(np.int64) - plain).max()))
-        bad = int((~((got == plain).all(1) & (got == want).all(1))).sum())
+        bad, err = _check_lsap(dev, K, sel, singles=True)
         mismatches += bad
-        batched += len(sel)
+        max_abs_err = max(max_abs_err, err)
+        counted[K] = len(sel)
+    # batches of more one-warp blocks than the card has SMs
+    batches = []
+    for K, B in ((8, 301), (64, 290)):
+        sel = []
+        for n in range(B):
+            r, c = more.randint(0, K + 1), more.randint(0, K + 1)
+            sel.append((r, c, _lsap_cost(more, ("random", "clamped")[n % 2],
+                                         r, c)))
+        bad, err = _check_lsap(dev, K, sel, singles=False)
+        mismatches += bad
+        max_abs_err = max(max_abs_err, err)
+        batches.append(f"B={B} K={K} ({lsap.plan(B, K).grid} blocks)")
     torch.cuda.synchronize()
-    log(f"[kernel] lsap: {len(cases)} single + {batched} batched matrices, "
-        f"{mismatches} mismatches against plain torch and scipy, max "
+    log(f"[kernel] lsap: capacity {cap}; matrices by K {counted}, each "
+        f"alone and in one batched call, and batched " + ", ".join(batches)
+        + f": {mismatches} mismatches against plain torch and scipy, max "
         f"|kernel - plain| {max_abs_err}")
     if mismatches:
         raise SystemExit("kernel check failed")
 
-    # timing at the tracker's capacity: K = 64, B = 1, a clamped cascade
-    # problem of 32 confirmed tracks against 32 detections
+    # timing at the tracker's capacity K = 64: the fixed cost (1x1), the
+    # cascade's 32 tracks x 32 detections (the timed input of every PR),
+    # phase 4's 24 walkers, a tall and a full problem, and a batch
     K = 64
-    cost = rng.uniform(0.0, 0.4, size=(32, 32)).astype(np.float32)
-    cost[cost > 0.2] = np.float32(0.2 + 1e-5)
-    costs = torch.tensor(_pad(K, cost)[None], device=dev)
-    sizes = torch.tensor([[32, 32]], dtype=torch.int32, device=dev)
-    kernel_ms = _time_cuda(lambda: lsap.solve(costs, sizes), 200)
-    plain_ms = _time_cuda(lambda: solve_lsap_plain(costs, sizes), 3)
-    kernel_ms_2 = _time_cuda(lambda: lsap.solve(costs, sizes), 200)
-    # bound: bytes moved once (cost, sizes, out) over HBM; operations: each
-    # row's first relaxation covers all 32 columns (3 adds and a compare
-    # each), the least work any solve of this input does, over the f32 peak
-    nbytes = K * K * 4 + 2 * 4 + K * 4
-    ops = 32 * 32 * 4
+    clamp = np.random.RandomState(SEED + 8)
+    timed = [("1x1", [_lsap_cost(clamp, "random", 1, 1)]),
+             ("32x32 clamped", [timed_32]),
+             ("24x24 clamped", [_lsap_cost(clamp, "clamped", 24, 24)]),
+             ("32x64 random", [_lsap_cost(clamp, "random", 32, 64)]),
+             ("64x64 random", [_lsap_cost(clamp, "random", 64, 64)]),
+             ("16 x 32x32 clamped", [_lsap_cost(clamp, "clamped", 32, 32)
+                                     for _ in range(16)])]
+    log("[kernel] lsap K=64, ms a call: device (CUDA-graph replay of 50 "
+        "calls) | eager round trip (host clock over solve + synchronize, "
+        "200 calls) | CUDA events over 200 eager calls (the first kernel's measure); "
+        "Dijkstra steps (numpy replica of scipy's loop; a batch: the most "
+        "of one matrix / the sum), us a step of the device time")
+    times = {}
+    for name, mats in timed:
+        steps = []
+        for cost in mats:
+            assign, n = _sap_steps(cost)
+            want = _scipy_assign(K, cost)
+            if any(want[r] != c for r, c in assign.items()) or \
+                    sum(want >= 0) != len(assign):
+                raise SystemExit(f"lsap: the step-count replica disagrees "
+                                 f"with scipy on {name}")
+            steps.append(n)
+        costs = torch.tensor(np.stack([_pad(K, c) for c in mats]),
+                             device=dev)
+        sizes = torch.tensor([c.shape for c in mats], dtype=torch.int32,
+                             device=dev)
+
+        def call():
+            return lsap.solve(costs, sizes)
+        t = (_graph_ms(call, 50), _round_trip_ms(call, 200),
+             _time_cuda(call, 200))
+        times[name] = t
+        log(f"[kernel]   {name:18s}: {t[0]:.5f} | {t[1]:.5f} | {t[2]:.5f}; "
+            f"steps {max(steps)} / {sum(steps)}, "
+            f"{t[0] * 1e3 / max(steps):.4f} us a step")
+        if name == "32x32 clamped":
+            plain_ms = _time_cuda(lambda: solve_lsap_plain(costs, sizes), 3)
+    kernel_ms, eager_ms, events_ms = times["32x32 clamped"]
+    # bound: bytes the function must move once over HBM: the live block of
+    # the cost (all a solve reads of the padded matrix), the sizes and the
+    # (K,) output; operations: each row's first relaxation covers all its
+    # columns (3 adds and a compare each), the least work any solve of this
+    # input does, over the f32 peak
+    rows, cols = timed_32.shape
+    nbytes = rows * cols * 4 + 2 * 4 + K * 4
+    ops = rows * cols * 4
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / F32_OPS_PER_S * 1e3
-    log(f"[kernel] lsap K=64 B=1 (32x32 clamped): kernel {kernel_ms:.5f} / "
-        f"{kernel_ms_2:.5f} ms, plain torch {plain_ms:.3f} ms; bound "
-        f"{max(bytes_ms, ops_ms):.7f} ms (bytes {bytes_ms:.7f}, ops "
-        f"{ops_ms:.7f})")
+    log(f"[kernel] lsap K=64 B=1 (32x32 clamped): kernel {kernel_ms:.5f} ms "
+        f"device, {eager_ms:.5f} ms eager round trip, plain torch "
+        f"{plain_ms:.3f} ms; bound {max(bytes_ms, ops_ms):.7f} ms (bytes "
+        f"{bytes_ms:.7f}, ops {ops_ms:.7f})")
     return {"name": "lsap", "route": "cuda",
             "source": "deepdish_tpu_torch/csrc/lsap.cu",
             "replaces": LSAP_REPLACES, "mismatches": mismatches,
-            "max_abs_err": max_abs_err, "ms": min(kernel_ms, kernel_ms_2),
-            "kernel_ms": min(kernel_ms, kernel_ms_2), "plain_ms": plain_ms,
+            "max_abs_err": max_abs_err, "ms": kernel_ms,
+            "kernel_ms": kernel_ms, "eager_round_trip_ms": eager_ms,
+            "events_ms": events_ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None}
@@ -367,27 +554,37 @@ def _plan_str(b, h, w, cin, cout, stride):
             f"{p.grid} blocks]")
 
 
-def _dsconv_build_report():
-    """ptxas's lines of each kernel of dsconv.cu, the bf16 blocks' dynamic
-    shared memory, and the count of wgmma serialization warnings (C7515);
-    a kernel that spills fails the phase."""
+def _ptxas_kernels(lib, kinds, tag):
+    """Log ptxas's register and spill lines of each kernel in
+    csrc/<lib>.cu whose name matches `kinds` (template arguments
+    spelled out); returns the kernels that spill."""
     import re
 
-    from deepdish_tpu_torch.kernels import _build, dsconv
+    from deepdish_tpu_torch.kernels import _build
     name, spills = None, []
-    lines = _build.ptxas_report("dsconv").splitlines()
-    for line in lines:
+    for line in _build.ptxas_report(lib).splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:   # e.g. dsconv_bf16_kernel<256, 2>: block_n, stride
-            kind = re.search(r"(dsconv_(?:bf16_kernel|f32_kernel|splitk_"
-                             r"epilogue))(?:I((?:Li\d+E)+)E)?",
+            kind = re.search(rf"({kinds})(?:I((?:Li\d+E)+)E)?",
                              entry.group(1))
             args = re.findall(r"Li(\d+)E", kind.group(2) or "")
             name = kind.group(1) + (f"<{', '.join(args)}>" if args else "")
         elif name and ("registers" in line or "spill" in line):
-            log(f"[dsconv] ptxas {name}: {line.split(':', 1)[-1].strip()}")
+            log(f"[{tag}] ptxas {name}: {line.split(':', 1)[-1].strip()}")
             if re.search(r"[1-9]\d* bytes spill", line):
                 spills.append(name)
+    return spills
+
+
+def _dsconv_build_report():
+    """ptxas's lines of each kernel of dsconv.cu, the bf16 blocks' dynamic
+    shared memory, and the count of wgmma serialization warnings (C7515);
+    a kernel that spills fails the phase."""
+    from deepdish_tpu_torch.kernels import _build, dsconv
+    spills = _ptxas_kernels(
+        "dsconv", "dsconv_(?:bf16_kernel|f32_kernel|splitk_epilogue)",
+        "dsconv")
+    lines = _build.ptxas_report("dsconv").splitlines()
     log("[dsconv] bf16 dynamic shared memory per block: " + ", ".join(
         f"{bn} wide {dsconv.smem_bytes(bn)} B" for bn in (64, 128, 256)) +
         f"; wgmma serialization warnings (C7515): "

@@ -5,14 +5,13 @@ Replaces the Pallas TPU kernel deepdish_tpu/ops/assignment_pallas.py
 `solve_lsap_pallas`), which runs the whole scipy-exact assignment solve of
 one capacity-padded matrix in VMEM.
 
-Bound: not memory. At the tracker's K = 64 the cost matrix is 16 KB, about
-5 ns of HBM traffic at 3.35 TB/s. The solve is a serial chain of up to K
-augmentations x K Dijkstra steps, each step a relaxation of the frontier
-and a block-wide argmin, so its time is that chain's latency. The kernel
-answers with one CTA per matrix that keeps the cost and all solver state in
-shared memory for the whole solve, one thread per column, warp-shuffle
-argmins, and device-side sizes (a launch needs no host sync). It is the
-simple design; a persistent or warp-specialised one is later work.
+Bound: not memory. At the tracker's K = 64 a 32 x 32 problem's live block is
+4 KB, about 1.3 ns of HBM traffic at 3.35 TB/s. The solve is a serial chain
+of Dijkstra steps (a relaxation of the scan and an argmin over it), so its
+time is that chain's latency. The kernel gives each matrix a block of one
+warp, with its columns' and rows' state in registers, the argmin as two
+`redux.sync` and no block barrier; the live block of the cost and a copy of
+the row duals sit in the block's shared memory, sized by `plan`.
 
 The plain version is `ops.assignment.solve_lsap_plain`; the pipeline uses
 it only for CPU tensors. Here a CUDA tensor launches the kernel or raises.
@@ -20,6 +19,7 @@ it only for CPU tensors. Here a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -28,36 +28,61 @@ from . import _build
 #: kernel launches since the count was last reset (the main-path check)
 launches = 0
 
+MAX_Q = 8                  # columns per lane (csrc kMaxQ): K <= 256
+
 _lib = None
-_capacity = {}                  # device index -> largest K
+_capacity = {}             # device index -> largest K
+
+
+class Plan(NamedTuple):
+    """How csrc/lsap.cu covers a (B, K, K) call: `grid` blocks of one warp,
+    one matrix each; lane l owns columns l + 32 q for q < `q`; `smem_bytes`
+    of dynamic shared memory a block."""
+    q: int
+    grid: int
+    smem_bytes: int
+
+
+def plan(b: int, k: int) -> Plan:
+    """The launch of a (b, k, k) call. A block's shared memory is the cost
+    at an odd row stride (k | 1, so a transposed store hits 32 banks) and
+    a copy of u, as csrc/lsap.cu lays it out."""
+    if not 1 <= k <= 32 * MAX_Q:
+        raise ValueError(f"K must be in 1..{32 * MAX_Q}, got {k}")
+    return Plan(-(-k // 32), b, 4 * (k * (k | 1) + k))
+
+
+def capacity(smem_optin: int) -> int:
+    """Largest K whose block fits `smem_optin` bytes of shared memory."""
+    return max((k for k in range(1, 32 * MAX_Q + 1)
+                if plan(1, k).smem_bytes <= smem_optin), default=0)
 
 
 def _library():
     global _lib
     if _lib is None:
         lib = _build.load("lsap")
-        lib.lsap_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                    ctypes.c_void_p, ctypes.c_int,
-                                    ctypes.c_int, ctypes.c_void_p]
+        lib.lsap_launch.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                                    + [ctypes.c_void_p])
         lib.lsap_launch.restype = ctypes.c_int
-        lib.lsap_max_capacity.argtypes = [ctypes.c_int]
-        lib.lsap_max_capacity.restype = ctypes.c_int
+        lib.lsap_smem_optin.argtypes = [ctypes.c_int]
+        lib.lsap_smem_optin.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
 def max_capacity(device=None) -> int:
-    """Largest K whose (K, K) cost and solver state fit in one block's
-    shared memory on `device` (default: the current CUDA device), as the
-    kernel's library computes it."""
+    """Largest K the kernel takes on `device` (default: the current CUDA
+    device): its block within the device's opt-in shared memory."""
     index = torch.device("cuda" if device is None else device).index
     if index is None:
         index = torch.cuda.current_device()
     if index not in _capacity:
-        k = _library().lsap_max_capacity(index)
-        if k < 0:
-            raise RuntimeError(f"lsap capacity query failed: CUDA error {-k}")
-        _capacity[index] = k
+        optin = _library().lsap_smem_optin(index)
+        if optin < 0:
+            raise RuntimeError(f"lsap capacity query failed: CUDA error "
+                               f"{-optin}")
+        _capacity[index] = capacity(optin)
     return _capacity[index]
 
 
@@ -79,17 +104,18 @@ def solve(costs: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"sizes must be ({B}, 2), got {tuple(sizes.shape)}")
     if not (costs.is_contiguous() and sizes.is_contiguous()):
         raise ValueError("costs and sizes must be contiguous")
-    if K > max_capacity(costs.device):
+    index = costs.device.index
+    cap = _capacity.get(index) or max_capacity(index)
+    if K > cap:
         raise ValueError(f"K = {K} does not fit one block's shared memory "
-                         f"(largest K is {max_capacity(costs.device)})")
+                         f"(largest K is {cap})")
     out = torch.empty((B, K), dtype=torch.int32, device=costs.device)
     if B == 0 or K == 0:
         return out
-    lib = _library()
-    stream = torch.cuda.current_stream(costs.device).cuda_stream
-    with torch.cuda.device(costs.device):
-        err = lib.lsap_launch(costs.data_ptr(), sizes.data_ptr(),
-                              out.data_ptr(), B, K, stream)
+    p = plan(B, K)
+    err = _library().lsap_launch(
+        costs.data_ptr(), sizes.data_ptr(), out.data_ptr(), B, K, p.q, p.grid,
+        p.smem_bytes, index, torch.cuda.current_stream(index).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lsap kernel launch failed: CUDA error {err}")
     launches += 1

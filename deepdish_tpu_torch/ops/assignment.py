@@ -7,8 +7,9 @@ assignments, so this is the same shortest-augmenting-path algorithm as
 tie-breaking:
 
   * rows are augmented in ascending order;
-  * the Dijkstra frontier scans the `remaining` column list, which starts in
-    descending column order and loses entries by swap-with-last removal;
+  * the Dijkstra frontier scans the columns in an order that starts
+    descending and loses each pick by swap-with-last removal (kept here,
+    as in the kernel, as a scan position per column);
   * among tied minimum reduced costs the first scan position wins, unless a
     tied column is unmatched; then the last tied unmatched position wins;
   * a wide matrix (n_rows > n_cols) is solved transposed and the result
@@ -28,14 +29,52 @@ from __future__ import annotations
 import torch
 
 
+_INT_MAX = 2 ** 31 - 1
+
+
+def order_key(x: torch.Tensor) -> torch.Tensor:
+    """Order-preserving int32 key of float32 values, as csrc/lsap.cu
+    `order_key` computes it: -0.0 and +0.0 share a key (they tie under
+    ==), negatives flip their low 31 bits, so -inf < finite < +inf keep
+    their order. NaN is not a cost."""
+    bits = torch.where(x == 0, 0.0, x).float().contiguous().view(torch.int32)
+    return torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)
+
+
+def key_value(key: torch.Tensor) -> torch.Tensor:
+    """The float32 value of an `order_key` (+0.0 for a zero)."""
+    return torch.where(key >= 0, key, key ^ 0x7FFFFFFF).view(torch.float32)
+
+
+def scan_pick(key: torch.Tensor, pos: torch.Tensor, live: torch.Tensor,
+              matched: torch.Tensor, tie: int):
+    """scipy's argmin over a Dijkstra scan, as two reductions over columns
+    (the kernel's two `redux.sync`). key, pos (scan position), live (in the
+    scan) and matched are (B, K); tie > every position. Returns (lowest
+    key, picked position): among the columns with the lowest key the first
+    position wins, unless one is unmatched, then the last unmatched one.
+    One max does it: tied unmatched columns score tie + pos, tied matched
+    ones tie - 1 - pos. Rows with no live column give (INT_MAX, tie)."""
+    key = torch.where(live, key, _INT_MAX)
+    lowest = key.amin(1)
+    tied = live & (key == lowest[:, None])
+    best = torch.where(tied, torch.where(matched, tie - 1 - pos, tie + pos),
+                       -1).amax(1)
+    return lowest, torch.where(best >= tie, best - tie, tie - 1 - best)
+
+
 def solve_lsap_plain(costs: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch solve of a batch. costs (B, K, K) float32 capacity-padded
     matrices, sizes (B, 2) int (n_rows, n_cols). Returns (B, K) int32 row ->
     col, -1 for unassigned rows (every row >= n_rows included).
 
-    The B problems advance in lockstep with per-lane masks (the batched form
-    of the JAX `vmap`ped while loops); loop exits read the device, so this
-    version is for the CPU and for checking the kernel, not for speed."""
+    The formulation is the CUDA kernel's: a scan position per column in
+    place of the `remaining` list (the pick leaves, the column at the last
+    position takes its place), the argmin as `scan_pick`, the row duals
+    updated through col2row of the picked columns. The B problems advance
+    in lockstep with per-lane masks (the batched form of the JAX `vmap`ped
+    while loops); loop exits read the device, so this version is for the
+    CPU and for checking the kernel, not for speed."""
     B, K, K2 = costs.shape
     if K != K2:
         raise ValueError("solve_lsap needs square (B, K, K) capacity matrices")
@@ -50,23 +89,19 @@ def solve_lsap_plain(costs: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
     cost = torch.where(transposed[:, None, None], costs.transpose(1, 2),
                        costs)
     b_ids = torch.arange(B, device=dev)
+    in_cols = ids[None] < n_cols[:, None]
 
     u = torch.zeros((B, K), dtype=torch.float32, device=dev)
     v = torch.zeros_like(u)
     row2col = torch.full((B, K), -1, dtype=torch.long, device=dev)
     col2row = torch.full_like(row2col, -1)
-    inf = torch.tensor(float("inf"), device=dev)
 
     max_rows = int(n_rows.max()) if B else 0
     for cur_row in range(max_rows):
         en = cur_row < n_rows
         spc = torch.full((B, K), float("inf"), device=dev)
         path = torch.full((B, K), -1, dtype=torch.long, device=dev)
-        sr = torch.zeros((B, K), dtype=torch.bool, device=dev)
-        sc = torch.zeros_like(sr)
-        remaining = torch.where(ids[None] < n_cols[:, None],
-                                n_cols[:, None] - 1 - ids[None],
-                                torch.zeros_like(ids)[None])
+        pos = torch.where(in_cols, n_cols[:, None] - 1 - ids[None], -1)
         num_rem = n_cols.clone()
         i = torch.full((B,), cur_row, dtype=torch.long, device=dev)
         min_val = torch.zeros((B,), device=dev)
@@ -76,44 +111,36 @@ def solve_lsap_plain(costs: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
             act = (sink < 0) & (num_rem > 0)
             if not bool(act.any()):
                 break
-            sr = sr | (act[:, None] & (ids[None] == i[:, None]))
-            in_rem = act[:, None] & ~sc & (ids[None] < n_cols[:, None])
+            live = act[:, None] & (pos >= 0)
             r = ((min_val[:, None] + cost[b_ids, i]) -
                  u.gather(1, i[:, None])) - v
-            better = in_rem & (r < spc)
+            better = live & (r < spc)
             spc = torch.where(better, r, spc)
             path = torch.where(better, i[:, None], path)
 
-            it_valid = ids[None] < num_rem[:, None]
-            c_at = torch.where(it_valid, spc.gather(1, remaining), inf)
-            lowest = c_at.amin(1)
-            tied = it_valid & (c_at == lowest[:, None])
-            unmatched = tied & (col2row.gather(1, remaining) < 0)
-            first_tied = torch.where(tied, ids[None], K).amin(1)
-            last_unm = torch.where(unmatched, ids[None], -1).amax(1)
-            idx = torch.where(unmatched.any(1), last_unm,
-                              first_tied).clamp(0, K - 1)
-            j = remaining.gather(1, idx[:, None])[:, 0]
-            last_rem = remaining.gather(
-                1, (num_rem - 1).clamp(min=0)[:, None])[:, 0]
-            remaining = torch.where(act[:, None] & (ids[None] == idx[:, None]),
-                                    last_rem[:, None], remaining)
+            lowest, idx = scan_pick(order_key(spc), pos, live, col2row >= 0,
+                                    K)
+            hit = live & (pos == idx[:, None])
+            j = torch.where(hit, ids[None], -1).amax(1)
+            c2r_j = torch.where(hit, col2row, -1).amax(1)
+            last = act[:, None] & (pos == (num_rem - 1)[:, None])
+            pos = torch.where(hit, -1, torch.where(last, idx[:, None], pos))
             num_rem = torch.where(act, num_rem - 1, num_rem)
-            sc = sc | (act[:, None] & (ids[None] == j[:, None]))
-            min_val = torch.where(act, lowest, min_val)
-            c2r_j = col2row.gather(1, j[:, None])[:, 0]
+            min_val = torch.where(act, key_value(lowest), min_val)
             is_sink = c2r_j < 0
             sink = torch.where(act & is_sink, j, sink)
             i = torch.where(act & ~is_sink, c2r_j, i)
 
-        # dual updates
-        spc_r2c = spc.gather(1, row2col.clamp(min=0))
-        du = torch.where(sr & (ids[None] != cur_row),
-                         min_val[:, None] - spc_r2c,
-                         torch.where(ids[None] == cur_row, min_val[:, None],
-                                     0.0))
-        u = u + torch.where(en[:, None], du, 0.0)
-        v = v - torch.where(en[:, None] & sc, min_val[:, None] - spc, 0.0)
+        # dual updates: the picked columns, and the rows the matched ones
+        # brought into the scan
+        picked = en[:, None] & in_cols & (pos < 0)
+        d = min_val[:, None] - spc
+        du = torch.zeros((B, K + 1), device=dev)
+        du.scatter_(1, torch.where(picked & (col2row >= 0), col2row, K),
+                    torch.where(picked, d, 0.0))
+        du[:, cur_row] = torch.where(en, min_val, 0.0)
+        u = u + du[:, :K]
+        v = v - torch.where(picked, d, 0.0)
 
         # augment along the alternating path
         j = sink
@@ -129,11 +156,9 @@ def solve_lsap_plain(costs: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
             j = torch.where(act, old, j)
             done = done | (i == cur_row) | (i < 0)
 
-    # a transposed solve's rows are the original columns: invert
-    inv = torch.full((B, K + 1), -1, dtype=torch.long, device=dev)
-    dest = torch.where(row2col >= 0, row2col, K)
-    inv.scatter_(1, dest, ids[None].expand(B, K).contiguous())
-    out = torch.where(transposed[:, None], inv[:, :K], row2col)
+    # a transposed solve's rows are the original columns: its col2row is
+    # the original row -> column map
+    out = torch.where(transposed[:, None], col2row, row2col)
     return out.to(torch.int32)
 
 

@@ -42,11 +42,17 @@ def _scipy(cost, k):
 
 
 def test_lsap_kernel_matches_plain_and_scipy(cuda):
+    """Every lane layout of the warp-per-matrix kernel (Q = 1, 2, 3, 4 and
+    the largest, with K on both sides of a 32-column boundary), one call a
+    K over 40 clamped matrices of any shape, and two batches of more
+    one-warp blocks than the card has SMs."""
     from deepdish_tpu_torch.kernels import lsap
     rng = np.random.RandomState(1)
-    for k in (8, 33, 64):
+    cap = lsap.max_capacity()
+    for k, n in ((1, 40), (8, 40), (31, 40), (32, 40), (33, 40), (64, 40),
+                 (65, 40), (128, 12), (cap, 4), (8, 301), (64, 290)):
         cases = []
-        for _ in range(40):
+        for _ in range(n):
             r, c = rng.randint(0, k + 1), rng.randint(0, k + 1)
             cost = rng.uniform(0, 0.4, size=(r, c)).astype(np.float32)
             cost[cost > 0.2] = np.float32(0.2 + 1e-5)
@@ -68,6 +74,7 @@ def test_lsap_wrapper_refuses_what_the_kernel_cannot_take(cuda):
     from deepdish_tpu_torch.kernels import lsap
     costs = torch.zeros((2, 8, 8), device=cuda)
     sizes = torch.zeros((2, 2), dtype=torch.int32, device=cuda)
+    before = lsap.launches
     with pytest.raises(TypeError):
         lsap.solve(costs.double(), sizes)
     with pytest.raises(TypeError):
@@ -76,9 +83,14 @@ def test_lsap_wrapper_refuses_what_the_kernel_cannot_take(cuda):
         lsap.solve(costs[:, :, :4], sizes)
     with pytest.raises(ValueError):
         lsap.solve(costs.transpose(1, 2), sizes)
-    k = lsap.max_capacity() + 1
+    with pytest.raises(ValueError):
+        lsap.solve(costs.cpu(), sizes)
+    cap = lsap.max_capacity()
+    assert cap >= 236          # what the block-per-matrix design took
+    k = cap + 1
     with pytest.raises(ValueError):
         lsap.solve(torch.zeros((1, k, k), device=cuda), sizes[:1])
+    assert lsap.launches == before
 
 
 def test_tracker_card_matches_cpu(cuda):
