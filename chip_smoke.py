@@ -45,11 +45,27 @@ failure:
   5. slice   FrameStep at 720p with random-init SSD-MobileNetV1 and MARS:
              `step` over 16 frames, `run_chunk` over 8; the LSAP launch
              count is reset before and read after, and must be > 0;
-  6. probe   the ported dsconv probe (deepdish_tpu_torch.tools.probe_dsconv)
+  6. cli     the port's CLI and what it adds under the frame step, at 720p
+             on a seeded walker scene (bright blocks on a dark background,
+             crossing x = 640): MOG2 on the card against the CPU (mask
+             agreement >= 0.999, identical motion decisions); FrameStep
+             `step` with bgsub on (ms/frame, host syncs, the profiler's
+             stage split with framestep.bgsub); `run_chunk_yuv` against
+             `run_chunk` (identical outputs, ms/frame); then
+             `deepdish_tpu_torch.pipeline.main.amain` with the scene given
+             through `Pipeline._open_capture`, --disable-graphics
+             --streaming 0 --control-port 0 and a --log in a temporary
+             directory: the default configuration (ssd_mobilenet + MARS,
+             bgsub on, every COCO label wanted) at --chunk-size 1 and 8,
+             every frame finite, its objd and e2e ms/frame; and
+             `--model scripted:bright` on the card (LSAP launches, reset
+             before and read after, > 0) and on the CPU, whose counters
+             must both equal the crossings the scene implies;
+  7. probe   the ported dsconv probe (deepdish_tpu_torch.tools.probe_dsconv)
              at full width: batch 32, 6 layers, all 9 stages, 2 rounds of 4;
              the dsconv launch counts are reset before and read after, and
              both strides must have launched;
-  7. report  the `kernels` JSON line, the card's name and power limit, and
+  8. report  the `kernels` JSON line, the card's name and power limit, and
              as the last line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when there is no card or the port is not
@@ -865,12 +881,12 @@ def phase_tracker(dev):
 
 # ---------------------------------------------------------------- phase 5
 
-def _framestep(dev, frame_shape, compute_dtype=None):
+def _framestep(dev, frame_shape, compute_dtype=None, step_cfg=None):
     import torch
     from deepdish_tpu_torch import tracker as tt
     from deepdish_tpu_torch.models import (COCO_LABELS, create_box_encoder,
                                            create_detector)
-    from deepdish_tpu_torch.pipeline import FrameStep
+    from deepdish_tpu_torch.pipeline import FrameStep, FrameStepConfig
     # random weights give random classes, so every COCO label is wanted
     # (the CLI default, 'person' alone, would keep ~1/80 of them)
     det = create_detector("ssd_mobilenet", device=dev, max_outputs=32,
@@ -881,7 +897,8 @@ def _framestep(dev, frame_shape, compute_dtype=None):
     cfg = tt.TrackerConfig(max_tracks=64, max_detections=32,
                            gallery_size=128, feature_dim=128,
                            num_labels=len(COCO_LABELS))
-    return FrameStep(det, enc, cfg, COCO_LABELS, frame_shape, device=dev)
+    return FrameStep(det, enc, cfg, COCO_LABELS, frame_shape,
+                     step_cfg or FrameStepConfig(), device=dev)
 
 
 def _frames(rng, n, shape):
@@ -964,12 +981,13 @@ def phase_slice(dev):
     return launches, {"step_ms": step_ms, "chunk_ms": chunk_ms}
 
 
-STAGES = ("framestep.upload", "framestep.resize", "ssd.net",
+STAGES = ("framestep.upload", "framestep.bgsub", "framestep.resize",
+          "ssd.net",
           "ssd.decode_nms", "framestep.filter_nms", "framestep.crop_mars",
           "framestep.tracker")
 
 
-def profile_step(fs, frames, dev):
+def profile_step(fs, frames, dev, tag="slice", state=None):
     """torch.profiler over plain `step` calls: per frame, each stage's
     host time and device time from the record_function ranges FrameStep
     places around its stages, and the device's busy share (CUDA kernel and
@@ -977,7 +995,8 @@ def profile_step(fs, frames, dev):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    state = fs.init_state()
+    if state is None:
+        state = fs.init_state()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -992,21 +1011,21 @@ def profile_step(fs, frames, dev):
         if e.name in host and e.device_type.name == "CPU":
             host[e.name] += e.cpu_time_total / n / 1e3
             device[e.name] += e.device_time_total / n / 1e3
-    log("[slice] stage split of step (torch.profiler ranges, ms/frame "
+    log(f"[{tag}] stage split of step (torch.profiler ranges, ms/frame "
         "host / device): " + ", ".join(
             f"{k} {host[k]:.3f} / {device[k]:.3f}" for k in STAGES))
     kernels = [e for e in prof.key_averages()
                if e.device_type.name == "CUDA" and not e.is_user_annotation]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us > 0:
-        log(f"[slice] profiler: device busy {busy_us / n:.1f} us/frame of "
+        log(f"[{tag}] profiler: device busy {busy_us / n:.1f} us/frame of "
             f"{wall_us / n:.1f} us/frame wall (idle share "
             f"{1 - busy_us / wall_us:.3f}); top kernels: " + "; ".join(
                 f"{e.key[:48]} {e.self_device_time_total / n:.1f} us"
                 for e in sorted(kernels,
                                 key=lambda e: -e.self_device_time_total)[:6]))
     else:
-        log("[slice] profiler: no device time recorded (not measured)")
+        log(f"[{tag}] profiler: no device time recorded (not measured)")
 
 
 def phase_reference(dev):
@@ -1066,6 +1085,311 @@ def phase_reference(dev):
 
 # ---------------------------------------------------------------- phase 6
 
+CLI_WALKERS = 6            # rows of bright blocks, alternating direction
+CLI_START = 20             # frames of empty background before they walk
+CLI_FRAMES = 56
+
+
+def _cli_scene(i):
+    """Frame i (BGR uint8, 720p) of the CLI's walker scene: a dark static
+    background, then from frame CLI_START bright textured 120x90 blocks in
+    separate rows walking 16 px a frame, alternately right and left, each
+    crossing x = 640 once. The texture (values 160-255, so every pixel is
+    bright) moves with its block, so background subtraction keeps it
+    foreground, and the random-weight SSD finds boxes on it."""
+    frame = np.full((FRAME_H, FRAME_W, 3), 16, np.uint8)
+    if i >= CLI_START:
+        for k, tex in enumerate(_CLI_TEXTURES):
+            x, y = _cli_block(k, i)
+            frame[y:y + 90, x:x + 120] = tex
+    return frame
+
+
+def _cli_block(k, i):
+    """Top-left corner of walker k's block on frame i >= CLI_START."""
+    right = k % 2 == 0
+    return ((280 if right else 880) + (16 if right else -16) * (
+        i - CLI_START), 40 + 110 * k)
+
+
+_CLI_TEXTURES = np.random.RandomState(SEED + 10).randint(
+    160, 256, (CLI_WALKERS, 90, 120, 3)).astype(np.uint8)
+
+
+def _cli_expected():
+    right = sum(1 for k in range(CLI_WALKERS) if k % 2 == 0)
+    return {"poscount_person": right,
+            "negcount_person": CLI_WALKERS - right,
+            "diff_person": 2 * right - CLI_WALKERS,
+            "intcount_person": CLI_WALKERS, "delcount_person": 0}
+
+
+class _SceneCapture:
+    """cv2.VideoCapture's interface over numpy frames (the CLI's path needs
+    no cv2): read, get, set, release."""
+
+    def __init__(self, n_frames):
+        self.n, self.i = n_frames, 0
+
+    def read(self):
+        if self.i >= self.n:
+            return False, None
+        self.i += 1
+        return True, _cli_scene(self.i - 1)
+
+    def get(self, prop):
+        from deepdish_tpu_torch.pipeline import runtime
+        return {runtime.CAP_PROP_FRAME_WIDTH: FRAME_W,
+                runtime.CAP_PROP_FRAME_HEIGHT: FRAME_H,
+                runtime.CAP_PROP_FPS: 15.0}.get(prop, 0)
+
+    def set(self, prop, value):
+        return True
+
+    def release(self):
+        pass
+
+
+def _run_cli(argv, n_frames):
+    """deepdish_tpu_torch.pipeline.main.amain with the scene through
+    Pipeline._open_capture. Returns (pipeline, per-frame timing ms by
+    label, frames seen by the frame step, non-finite frames)."""
+    import asyncio
+
+    from deepdish_tpu_torch.pipeline import main as cli
+    from deepdish_tpu_torch.pipeline.elements import TimingInfo
+    from deepdish_tpu_torch.pipeline.runtime import Pipeline
+    seen = {"timing": {}, "frames": 0, "bad": 0}
+
+    class SmokePipeline(Pipeline):
+        def _open_capture(self, source):
+            return _SceneCapture(n_frames)
+
+        def _device_step(self, frames_rgb):
+            results = super()._device_step(frames_rgb)
+            for out, snap in results:
+                seen["frames"] += 1
+                if not (np.isfinite(out.tlwh).all()
+                        and np.isfinite(snap.tlwh).all()
+                        and np.isfinite(snap.score).all()):
+                    seen["bad"] += 1
+            seen["pipeline"] = self
+            return results
+
+        def _text_output(self, handle, elements):
+            for e in elements:
+                if isinstance(e, TimingInfo):
+                    seen["timing"].setdefault(e.short_label, []).append(
+                        e.delta_t * 1e3)
+
+    saved = cli.Pipeline
+    cli.Pipeline = SmokePipeline
+    try:
+        asyncio.run(cli.amain(argv))
+    finally:
+        cli.Pipeline = saved
+    return seen["pipeline"], seen["timing"], seen["frames"], seen["bad"]
+
+
+def _bgsub_card_vs_cpu(dev, frames):
+    """The MOG2 update on the card against the CPU over the scene (its
+    static background leaves most components at zero weight): per frame
+    the mask agreement and the motion-ratio decision of every block and of
+    random boxes; the state's largest difference at the end."""
+    import torch
+    from deepdish_tpu_torch.ops import bgsub
+    rng = np.random.RandomState(SEED + 9)
+    states = [bgsub.init_state(FRAME_H, FRAME_W, d)
+              for d in (dev, torch.device("cpu"))]
+    worst, flips, decisions = 1.0, 0, 0
+    for i, f in enumerate(frames):
+        masks = []
+        for n, d in enumerate((dev, torch.device("cpu"))):
+            states[n], m = bgsub.update(states[n],
+                                        torch.from_numpy(f).to(d))
+            masks.append(m.cpu().numpy())
+        worst = min(worst, float((masks[0] == masks[1]).mean()))
+        sizes = rng.randint(8, 200, size=(32, 2))
+        boxes = [(rng.randint(0, FRAME_W - w), rng.randint(0, FRAME_H - h),
+                  int(w), int(h)) for w, h in sizes]
+        if i >= CLI_START:
+            boxes += [_cli_block(k, i) + (120, 90)
+                      for k in range(CLI_WALKERS)]
+        got = [_motion(masks[0], b) for b in boxes]
+        flips += sum(a != b for a, b in zip(got, [_motion(masks[1], b)
+                                                  for b in boxes]))
+        decisions += len(boxes)
+    _sync(dev)
+    err = max(float((a.cpu() - b).abs().max())
+              for a, b in zip(states[0][:3], states[1][:3]))
+    return worst, flips, decisions, err
+
+
+def _motion(mask, box, ratio=0.25):
+    x, y, w, h = box
+    return bool((mask[y:y + h, x:x + w] != 0).sum() >= ratio * w * h)
+
+
+def _to_i420(frames_rgb):
+    """(F, H, W, 3) RGB -> (F, H*3/2, W) I420 with BT.601 video-range
+    coefficients, in numpy (the port's path needs no cv2)."""
+    f = frames_rgb.astype(np.float32)
+    r, g, b = f[..., 0], f[..., 1], f[..., 2]
+    y = 16 + 0.257 * r + 0.504 * g + 0.098 * b
+    u = 128 - 0.148 * r - 0.291 * g + 0.439 * b
+    v = 128 + 0.439 * r - 0.368 * g - 0.071 * b
+    F_, H, W = y.shape
+    sub = (lambda c: c.reshape(F_, H // 2, 2, W // 2, 2).mean((2, 4))
+           .reshape(F_, H // 4, W))
+    out = np.concatenate([y, sub(u), sub(v)], axis=1)
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+def phase_cli(dev):
+    """The port's CLI end to end on the card, and the bgsub pieces under
+    it; every LSAP count is reset before its run and read after."""
+    import tempfile
+
+    import torch
+    from deepdish_tpu_torch import device as devmod
+    from deepdish_tpu_torch.kernels import lsap
+    from deepdish_tpu_torch.models import COCO_LABELS
+    from deepdish_tpu_torch.ops import colorspace
+    from deepdish_tpu_torch.pipeline import FrameStepConfig
+
+    frames_bgr = np.stack([_cli_scene(i) for i in range(CLI_FRAMES)])
+    frames_rgb = np.ascontiguousarray(frames_bgr[..., ::-1])
+    worst, flips, decisions, err = _bgsub_card_vs_cpu(dev, frames_rgb[:36])
+    log(f"[cli] bgsub 720p card vs CPU over 36 frames: masks agree on >= "
+        f"{worst:.6f} of the pixels on every frame; {flips} of {decisions} "
+        f"motion decisions differ; state max |card - CPU| {err:.3e}")
+    if worst < 0.999 or flips:
+        raise SystemExit("cli: bgsub on the card disagrees with the CPU")
+
+    # FrameStep.step with bgsub on (the CLI's default) and off (phase 5's
+    # configuration), same weights and frames, in turns; then
+    # run_chunk_yuv against run_chunk
+    from deepdish_tpu_torch.pipeline import FrameStep
+    fs = _framestep(dev, (FRAME_H, FRAME_W),
+                    step_cfg=FrameStepConfig(background_subtraction=True))
+    fs_off = FrameStep(fs.detector, fs.encoder, fs.tracker_cfg,
+                       fs.wanted_labels, (FRAME_H, FRAME_W), device=dev)
+    warm = {}
+    for name, f_s in (("on", fs), ("off", fs_off)):
+        st = f_s.init_state()
+        for f in frames_rgb[:CLI_START]:     # MOG2 learns the background
+            st, _, _, _ = f_s.step(st, f)
+        warm[name] = st
+    _sync(dev)
+    seq = frames_rgb[CLI_START:CLI_START + 16]
+    for name in ("on", "off", "on", "off"):
+        f_s = fs if name == "on" else fs_off
+        state = warm[name]
+        lsap.launches = 0
+        devmod.host_syncs = 0
+        dets = []
+        t0 = time.perf_counter()
+        for f in seq:
+            state, out, snap, _ = f_s.step(state, f)
+            dets.append(snap.valid.sum())
+        _sync(dev)
+        step_ms = (time.perf_counter() - t0) / len(seq) * 1e3
+        log(f"[cli] FrameStep.step, bgsub {name}, 720p walker scene: "
+            f"{step_ms:.3f} ms/frame over {len(seq)} frames, "
+            f"{devmod.host_syncs / len(seq):.2f} host syncs/frame, "
+            f"{lsap.launches} LSAP launches, detections/frame "
+            f"{[int(d) for d in dets]}")
+        _check_outputs(out, snap, 64, 32)
+    state = warm["on"]
+    profile_step(fs, seq[:8], dev, tag="cli", state=state)
+
+    chunk = frames_rgb[CLI_START:CLI_START + 8]
+    yuv = _to_i420(chunk)
+    rgb_dev = colorspace.yuv420_to_rgb_u8(torch.from_numpy(yuv).to(dev),
+                                          FRAME_H, FRAME_W)
+    rgb = rgb_dev.cpu().numpy()
+    ys, yo, ysnap = fs.run_chunk_yuv(state, yuv)
+    rs, ro, rsnap = fs.run_chunk(state, rgb)
+    same = all(torch.equal(a, b) for a, b in zip(yo + ysnap, ro + rsnap))
+    times = {}
+    for name, fn in (("run_chunk", lambda: fs.run_chunk(state, rgb)),
+                     ("run_chunk_yuv", lambda: fs.run_chunk_yuv(state, yuv)),
+                     ("run_chunk again", lambda: fs.run_chunk(state, rgb)),
+                     ("run_chunk_yuv again",
+                      lambda: fs.run_chunk_yuv(state, yuv))):
+        _sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        _sync(dev)
+        times[name] = (time.perf_counter() - t0) / len(chunk) * 1e3
+    log(f"[cli] run_chunk_yuv(8) vs run_chunk(8) on the frames it converts "
+        f"them to: outputs identical {same}; ms/frame (host clock, from "
+        f"host numpy frames, in turns): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in times.items()))
+    if not same:
+        raise SystemExit("cli: run_chunk_yuv differs from run_chunk")
+    del fs, state, ys, rs
+
+    common = ["--input", "synthetic://walkers", "--disable-graphics",
+              "--streaming", "0", "--control-port", "0"]
+    with tempfile.TemporaryDirectory() as tmp:
+        # Run 1: the default configuration, every COCO label wanted
+        for chunk_size in (1, 8):
+            lsap.launches = 0
+            t0 = time.perf_counter()
+            pipe, timing, n, bad = _run_cli(
+                common + ["--model", "ssd_mobilenet",
+                          "--wanted-labels", ",".join(COCO_LABELS),
+                          "--chunk-size", str(chunk_size),
+                          "--log", f"{tmp}/default{chunk_size}.log"],
+                CLI_FRAMES)
+            secs = time.perf_counter() - t0
+            skip = 8      # the first frames carry the start-up
+            objd = float(np.mean(timing["objd"][skip:]))
+            e2e = float(np.mean(timing["e2e"][skip:]))
+            crossed = {k: v for k, v in
+                       pipe.counting.counters_payload().items() if v}
+            log(f"[cli] default CLI 720p (ssd_mobilenet + MARS random-init, "
+                f"bgsub on, {pipe.framestep.detector.compute_dtype}), "
+                f"--chunk-size {chunk_size}: {n} frames in {secs:.1f} s, "
+                f"objd {objd:.3f} ms/frame, e2e {e2e:.3f} ms/frame (mean "
+                f"over frames {skip + 1}-{n}), {lsap.launches} LSAP "
+                f"launches, {bad} frames with non-finite outputs; nonzero "
+                f"counters {crossed}")
+            if n != CLI_FRAMES or bad:
+                raise SystemExit(f"cli: the default run saw {n} frames, "
+                                 f"{bad} non-finite")
+            del pipe
+
+        # Run 2: scripted:bright, card then CPU
+        counts = {}
+        for where in ("cuda", "cpu"):
+            lsap.launches = 0
+            t0 = time.perf_counter()
+            pipe, timing, n, bad = _run_cli(
+                common + ["--model", "scripted:bright", "--device", where,
+                          "--max-detections", "8",
+                          "--log", f"{tmp}/scripted_{where}.log"],
+                CLI_FRAMES)
+            counts[where] = pipe.counting.counters_payload()
+            launches = lsap.launches
+            log(f"[cli] scripted:bright on {where}: {n} frames in "
+                f"{time.perf_counter() - t0:.1f} s, objd "
+                f"{float(np.mean(timing['objd'][8:])):.3f} ms/frame, "
+                f"{launches} LSAP launches; counters {counts[where]}")
+            if where == "cuda" and launches <= 0:
+                raise SystemExit("cli: the LSAP kernel never launched")
+            if n != CLI_FRAMES or bad:
+                raise SystemExit(f"cli: scripted run saw {n} frames, "
+                                 f"{bad} non-finite")
+    expected = _cli_expected()
+    log(f"[cli] expected crossings {expected}")
+    if counts["cuda"] != expected or counts["cpu"] != expected:
+        raise SystemExit(f"cli: counters {counts}, expected {expected}")
+
+
+# ---------------------------------------------------------------- phase 7
+
 def phase_probe(dev):
     """The ported probe at full width through its entry point; returns the
     dsconv launches by stride, counted from 0 over this run only."""
@@ -1123,6 +1447,7 @@ def main() -> int:
     phase_reference(dev)
     launches, _ = phase_slice(dev)
     entry["launches"] = launches
+    phase_cli(dev)
     by_stride = phase_probe(dev)
     for e, s in zip(ds_entries, (1, 2)):
         e["launches"] = by_stride[s]

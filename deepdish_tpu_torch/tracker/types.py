@@ -14,7 +14,7 @@ from typing import NamedTuple, Optional, Union
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, sync_int
 
 EMPTY = 0
 TENTATIVE = 1
@@ -112,6 +112,39 @@ def create_table(cfg: TrackerConfig,
         label_conf=torch.zeros((T, L), dtype=dtype, device=dev),
         next_id=torch.tensor(1, **i32),
     )
+
+
+def gallery_pressure(cfg: TrackerConfig, table: TrackTable) -> int:
+    """Largest per-slot appended-feature count (host int, one counted
+    sync). When it reaches gallery_size the ring starts overwriting and
+    appearance costs diverge from the reference's unbounded gallery
+    (deepdish.py:515 budget=None); the runtime grows the gallery first."""
+    return sync_int(table.gallery_count.max())
+
+
+def gallery_overflow(cfg: TrackerConfig, table: TrackTable) -> int:
+    """Total features overwritten by the ring across slots (0: the bounded
+    gallery is still exactly the reference's unbounded one)."""
+    over = torch.clamp(table.gallery_count - cfg.gallery_size, min=0)
+    return sync_int(over.sum())
+
+
+def grow_gallery(cfg: TrackerConfig, table: TrackTable, new_size: int):
+    """(cfg', table') with the gallery ring enlarged to `new_size`. Must be
+    called while every slot's gallery_count is still <= gallery_size
+    (before any overwrite): the ring is then linear, so zero-padding the
+    gallery axis keeps every stored feature at its index and the min-cosine
+    distances are unchanged."""
+    if new_size < cfg.gallery_size:
+        raise ValueError("gallery can only grow")
+    if gallery_pressure(cfg, table) > cfg.gallery_size:
+        raise ValueError("gallery already wrapped; growth would scramble "
+                         "ring order — grow earlier (pressure threshold)")
+    new_cfg = dataclasses.replace(cfg, gallery_size=new_size)
+    T, G, F = table.gallery.shape
+    pad = table.gallery.new_zeros((T, new_size - G, F))
+    return new_cfg, table._replace(
+        gallery=torch.cat([table.gallery, pad], dim=1))
 
 
 def pack_detections(cfg: TrackerConfig, tlwh, confidence, label, feature,

@@ -213,3 +213,169 @@ def test_counting_crossings():
     payload = pc.counters_payload()
     assert payload["poscount_person"] + payload["negcount_person"] == 2
     assert payload["intcount_car"] == 2
+
+
+# ---- background subtraction on: step, step_skip, scripted_step, run_chunk,
+# run_chunk_yuv, and the checkpoint exchange ----
+
+N_BG = 6
+
+
+@pytest.fixture(scope="module")
+def bg_pair(pair):
+    """Both packages' FrameSteps with MOG2 and the motion-ratio filter on,
+    the same float32 networks as `pair`."""
+    jfs, pfs = pair
+    jcfg = JConfig(score_threshold=0.3, background_subtraction=True)
+    pcfg = PConfig(score_threshold=0.3, background_subtraction=True)
+    return (JFrameStep(jfs.detector, jfs.encoder, jfs.tracker_cfg, WANTED,
+                       (H, W), jcfg),
+            PFrameStep(pfs.detector, pfs.encoder, pfs.tracker_cfg, WANTED,
+                       (H, W), pcfg, device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def bg_frames(frames):
+    """The first of `frames` drifting 2 px a frame, with a bright block
+    moving 6 px a frame: the scene moves, so the detector's boxes keep
+    passing the motion filter after frame 1 and tracks confirm."""
+    out = np.stack([np.roll(frames[0], 2 * i, axis=1)
+                    for i in range(N_FRAMES)])
+    for i in range(N_FRAMES):
+        out[i, 30:70, 10 + 6 * i:50 + 6 * i] = 230
+    return out
+
+
+def _assert_same(i, po, psnap, jo, jsnap):
+    for name in ("valid", "label", "tlwh"):
+        np.testing.assert_array_equal(
+            getattr(psnap, name).numpy(), np.asarray(getattr(jsnap, name)),
+            err_msg=f"frame {i} snapshot {name}")
+    for name in ("track_id", "state", "matched_det", "deleted_id", "hits"):
+        np.testing.assert_array_equal(
+            getattr(po, name).numpy(), np.asarray(getattr(jo, name)),
+            err_msg=f"frame {i} {name}")
+
+
+@pytest.fixture(scope="module")
+def bg_runs(bg_pair, bg_frames):
+    jfs, pfs = bg_pair
+    js, ps = jfs.init_state(), pfs.init_state()
+    seq = []
+    for f in bg_frames:
+        js, jo, jsnap, _ = jfs.step(js, f)
+        ps, po, psnap, _ = pfs.step(ps, f)
+        seq.append((po, psnap, jo, jsnap))
+    return seq, (js, ps)
+
+
+def test_bgsub_step_matches_jax(bg_runs):
+    seq, (js, ps) = bg_runs
+    kept_after_first = 0
+    for i, (po, psnap, jo, jsnap) in enumerate(seq):
+        _assert_same(i, po, psnap, jo, jsnap)
+        if i:
+            kept_after_first += int(psnap.valid.sum())
+    assert kept_after_first > 0, "no box passed the motion filter"
+    assert (seq[-1][0].state.numpy() == pt.CONFIRMED).any()
+    for a, b in zip(ps.bg, js.bg):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4)
+
+
+def test_bgsub_chunk_equals_sequential(bg_pair, bg_frames, bg_runs):
+    """run_chunk (MOG2 scanned frame by frame, the detector batched) gives
+    the sequential steps' outputs; run_chunk_yuv on I420 frames gives
+    run_chunk's on the frames it converts them to."""
+    import cv2
+    from deepdish_tpu_torch.ops.colorspace import yuv420_to_rgb_u8
+    _, pfs = bg_pair
+    seq, (_, ps) = bg_runs
+    cstate, couts, csnaps = pfs.run_chunk(pfs.init_state(), bg_frames)
+    for i, (po, psnap, _, _) in enumerate(seq):
+        for name in ("track_id", "state", "matched_det"):
+            np.testing.assert_array_equal(getattr(couts, name)[i].numpy(),
+                                          getattr(po, name).numpy(),
+                                          err_msg=f"frame {i} {name}")
+        np.testing.assert_array_equal(csnaps.tlwh[i].numpy(),
+                                      psnap.tlwh.numpy())
+    for a, b in zip(cstate.bg, ps.bg):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+    yuv = np.stack([cv2.cvtColor(f, cv2.COLOR_RGB2YUV_I420)
+                    for f in bg_frames])
+    rgb = yuv420_to_rgb_u8(torch.from_numpy(yuv), H, W)
+    _, yo, ysnap = pfs.run_chunk_yuv(pfs.init_state(), yuv)
+    _, ro, rsnap = pfs.run_chunk(pfs.init_state(), rgb)
+    for a, b in zip(yo + ysnap, ro + rsnap):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert int(ysnap.valid[1:].sum()) > 0
+
+
+def test_step_skip_matches_jax(bg_pair, bg_frames):
+    """--object-detector-skip-frames: frame 0's raw detector output reused
+    on frames 1..3, with bgsub, the filters and crop+embed on each."""
+    jfs, pfs = bg_pair
+    js, ps = jfs.init_state(), pfs.init_state()
+    js, _, _, jraw = jfs.step(js, bg_frames[0])
+    ps, _, _, praw = pfs.step(ps, bg_frames[0])
+    for i in range(1, 4):
+        js, jo, jsnap = jfs.step_skip(js, bg_frames[i], jraw)
+        ps, po, psnap = pfs.step_skip(ps, bg_frames[i], praw)
+        _assert_same(i, po, psnap, jo, jsnap)
+
+
+def _scripted_boxes(i, R=32):
+    """Host-scripted raw detections: two overlapping boxes over the moving
+    block (NMS keeps one) and one elsewhere."""
+    xyxy = np.zeros((R, 4), np.float32)
+    cls = np.zeros((R,), np.int32)
+    scr = np.zeros((R,), np.float32)
+    val = np.zeros((R,), bool)
+    x = 10 + 6 * i
+    rows = [(x, 30, x + 40, 70, 0, 0.9), (x + 2.5, 31.5, x + 38, 69, 2, 0.8),
+            (80, 70, 120, 95, 0, 0.7)]
+    for k, (a, b, c, d, lab, s) in enumerate(rows):
+        xyxy[k] = (a, b, c, d)
+        cls[k], scr[k], val[k] = lab, s, True
+    return xyxy, cls, scr, val
+
+
+def test_scripted_step_matches_jax(bg_pair, bg_frames):
+    jfs, pfs = bg_pair
+    js, ps = jfs.init_state(), pfs.init_state()
+    for i, f in enumerate(bg_frames):
+        raw = _scripted_boxes(i)
+        js, jo, jsnap = jfs.scripted_step(js, f, *raw)
+        ps, po, psnap = pfs.scripted_step(ps, f, *raw)
+        _assert_same(i, po, psnap, jo, jsnap)
+    assert (po.state.numpy() == pt.CONFIRMED).any()
+
+
+def test_checkpoint_exchange(bg_pair, bg_frames, tmp_path):
+    """A JAX checkpoint restores in the port and a port checkpoint in the
+    JAX package (same .npz keys, tracker and MOG2 state); after either
+    exchange the next frames give the same outputs as the run that kept
+    its own state."""
+    from deepdish_tpu.pipeline import checkpoint as jck
+    from deepdish_tpu_torch.pipeline import checkpoint as pck
+    jfs, pfs = bg_pair
+    js, ps = jfs.init_state(), pfs.init_state()
+    for f in bg_frames[:3]:
+        js, _, _, _ = jfs.step(js, f)
+        ps, _, _, _ = pfs.step(ps, f)
+    counters = {"poscount_person": 2, "negcount_person": 1}
+    jck.save_state(str(tmp_path / "j.npz"), js, counters, 3)
+    pck.save_state(str(tmp_path / "p.npz"), ps, counters, 3)
+    p_from_j, pc, pn = pck.load_state(str(tmp_path / "j.npz"),
+                                      pfs.init_state())
+    j_from_p, jc, jn = jck.load_state(str(tmp_path / "p.npz"),
+                                      jfs.init_state())
+    assert pc == jc == counters and pn == jn == 3
+    assert p_from_j.table.state.device.type == "cpu"
+    for i, f in enumerate(bg_frames[3:]):
+        js, jo, jsnap, _ = jfs.step(js, f)
+        ps, po, psnap, _ = pfs.step(ps, f)
+        p_from_j, po2, psnap2, _ = pfs.step(p_from_j, f)
+        j_from_p, jo2, jsnap2, _ = jfs.step(j_from_p, f)
+        _assert_same(i, po2, psnap2, jo, jsnap)
+        _assert_same(i, po, psnap, jo2, jsnap2)

@@ -1,7 +1,8 @@
 """Tests of the port that need a CUDA card: the hand-written LSAP kernel
 against its plain version and scipy, the fused depthwise-separable kernel
-against its plain version, their wrappers' checks, and the tracker and frame
-step on the card against the CPU. They skip without a card, and
+against its plain version, their wrappers' checks, and the tracker, the
+MOG2 background subtraction and the frame step on the card against the
+CPU. They skip without a card, and
 import nothing of JAX. On the GPU machine:
 
     python -m pytest -m gpu tests/test_torch_*.py
@@ -150,6 +151,37 @@ def test_framestep_on_the_card(cuda):
     assert outs.track_id.shape == (6, 16) and snaps.tlwh.shape == (6, 8, 4)
     assert bool(torch.isfinite(outs.tlwh).all())
     assert (state.table.state != 0).any() and (state2.table.state != 0).any()
+
+
+def test_bgsub_card_matches_cpu(cuda):
+    """MOG2 on the card against the CPU on a scene whose static background
+    leaves most of the 5 components a pixel at zero weight (the sort's
+    ties): masks agree on >= 0.999 of the pixels every frame, the state
+    within 1e-4; the frame-1 black-pixel rule and the moving block's
+    foreground hold on both."""
+    from deepdish_tpu_torch.ops import bgsub
+    rng = np.random.RandomState(8)
+    h, w = 120, 160
+    base = rng.randint(40, 80, (h, w, 3)).astype(np.uint8)
+    states = [bgsub.init_state(h, w, cuda), bgsub.init_state(h, w, "cpu")]
+    for i in range(40):
+        f = np.clip(base + rng.randint(-3, 4, base.shape), 0,
+                    255).astype(np.uint8)
+        if i == 0:
+            f[:8, :8] = 0
+        if i >= 20:
+            f[30:70, 10 + 3 * i:40 + 3 * i] = 220
+        masks = []
+        for n, dev in enumerate((cuda, "cpu")):
+            states[n], m = bgsub.update(states[n],
+                                        torch.from_numpy(f).to(dev))
+            masks.append(m.cpu().numpy())
+        assert (masks[0] == masks[1]).mean() >= 0.999, i
+        if i == 0:
+            assert (masks[0][:8, :8] == 255).all()
+    assert (masks[0][30:70, 10 + 3 * 39:40 + 3 * 39] == 255).mean() > 0.5
+    for a, b in zip(states[0], states[1]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4)
 
 
 def _dsconv_args(rng, b, h, w, cin, cout, dtype, device):

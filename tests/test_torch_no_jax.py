@@ -1,6 +1,8 @@
 """The port stands alone: deepdish_tpu_torch and chip_smoke.py import no
-jax, no flax and nothing of deepdish_tpu, and its entry points need a card
-unless the caller asks for the CPU."""
+jax, no flax and nothing of deepdish_tpu, its entry points need a card
+unless the caller asks for the CPU, and the CLI's modules import cv2 and
+PIL only inside the functions that need them (the card's machine has
+neither)."""
 import ast
 import os
 import subprocess
@@ -12,6 +14,11 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "deepdish_tpu_torch")
 _BANNED = ("jax", "flax", "deepdish_tpu")
+# modules that the CLI imports with --disable-graphics --streaming 0
+_NO_TOP_LEVEL = ("cv2", "PIL")
+_HOST_LAZY = [os.path.join(PKG, *p) for p in (
+    ("pipeline", "runtime.py"), ("pipeline", "elements.py"),
+    ("pipeline", "mjpeg.py"), ("models", "registry.py"))]
 
 
 def _sources():
@@ -30,7 +37,9 @@ def test_sources_found():
     names = {os.path.relpath(p, ROOT) for p in _sources()}
     assert "chip_smoke.py" in names
     assert os.path.join("deepdish_tpu_torch", "kernels", "lsap.py") in names
-    assert len(names) > 20
+    assert os.path.join("deepdish_tpu_torch", "pipeline", "runtime.py") \
+        in names
+    assert len(names) > 30
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -48,14 +57,42 @@ def test_no_jax_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def _top_level_imports(tree):
+    """Modules imported at module level (not inside a function)."""
+    names = []
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+        elif isinstance(node, ast.Try):
+            names += _top_level_imports(ast.Module(body=node.body,
+                                                   type_ignores=[]))
+    return names
+
+
+@pytest.mark.parametrize("path", _HOST_LAZY,
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_top_level_cv2_or_pil(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    bad = [m for m in _top_level_imports(tree)
+           if m.split(".")[0] in _NO_TOP_LEVEL]
+    assert not bad, f"{path} imports {bad} at module level"
+
+
 def test_import_pulls_no_jax():
     code = ("import sys, deepdish_tpu_torch.pipeline, "
             "deepdish_tpu_torch.models, deepdish_tpu_torch.kernels.lsap, "
             "deepdish_tpu_torch.pipeline.counting, "
+            "deepdish_tpu_torch.pipeline.main, "
+            "deepdish_tpu_torch.pipeline.checkpoint, "
+            "deepdish_tpu_torch.ops.bgsub, deepdish_tpu_torch.ops.colorspace, "
+            "deepdish_tpu_torch.utils.native, "
             "deepdish_tpu_torch.kernels.dsconv, deepdish_tpu_torch.ops.dsconv, "
             "deepdish_tpu_torch.tools.probe_dsconv\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'deepdish_tpu')]\n"
+            "('jax', 'flax', 'deepdish_tpu', 'cv2', 'PIL')]\n"
             "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -76,7 +113,9 @@ def test_entry_points_need_cuda_unless_cpu():
     assert fs.init_state().table.state.device.type == "cpu"
     if torch.cuda.is_available():
         pytest.skip("a card is present: the CUDA defaults are valid here")
+    from deepdish_tpu_torch.ops import bgsub
     for call in (lambda: create_detector("ssd_mobilenet"),
+                 lambda: bgsub.init_state(8, 8),
                  lambda: create_box_encoder("mars"),
                  lambda: create_box_encoder("dummy"),
                  lambda: pt.create_table(cfg),
