@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card (an H100, sm_90a), nvcc and scipy. Phases, each fatal on
-failure:
+Needs one CUDA card (an H100, sm_90a), nvcc, scipy and cv2 (phase 8 writes
+and reads JPEGs). Phases, each fatal on failure:
 
   1. build   every kernel in deepdish_tpu_torch/csrc/ (lsap, dsconv: one nvcc
              each, all started together); print build seconds;
@@ -57,22 +57,43 @@ failure:
              --streaming 0 --control-port 0 and a --log in a temporary
              directory: the default configuration (ssd_mobilenet + MARS,
              bgsub on, every COCO label wanted) at --chunk-size 1 and 8,
-             every frame finite, its objd and e2e ms/frame; and
+             every frame finite, its objd and e2e ms/frame; the same in
+             float32 on the card and on the CPU at chunk 1 and 8, whose
+             counters must agree at each chunk size; and
              `--model scripted:bright` on the card (LSAP launches, reset
              before and read after, > 0) and on the CPU, whose counters
              must both equal the crossings the scene implies;
-  7. probe   the ported dsconv probe (deepdish_tpu_torch.tools.probe_dsconv)
+  7. families YOLOv5s (320), YOLOv3 (416) and EfficientDet-Lite0 (320) at
+             full width, seeded random weights with calibrated batch norms
+             (`_family_init`; FAMILY_THRESHOLD): float32 detector outputs
+             on the card against the CPU port on two resized (YOLOv3:
+             letterboxed) 720p frames (integers exact, order-free only
+             among scores tied to 1e-5); FrameStep `step` over 16 frames
+             and `run_chunk` over 8 in bf16 (ms/frame, host syncs/frame,
+             LSAP launches > 0); the CLI at --chunk-size 8 (every frame
+             finite, objd and e2e);
+  8. cvat    CVAT split mode through the CLI: the walker scene as a JPEG
+             sequence with one annotated track, --input-cvat-dir and
+             --output-cvat-dir; float32 with FrameStep.detect_only replaced
+             by the bright-block script on the card and on the CPU (the
+             two annotations.xml byte-identical, LSAP launches > 0), then
+             the random SSD in bf16 on the card (LSAP launches > 0);
+  9. probe   the ported dsconv probe (deepdish_tpu_torch.tools.probe_dsconv)
              at full width: batch 32, 6 layers, all 9 stages, 2 rounds of 4;
              the dsconv launch counts are reset before and read after, and
              both strides must have launched;
-  8. report  the `kernels` JSON line, the card's name and power limit, and
-             as the last line {"ok": true, "device": {...}}.
+ 10. report  the `kernels` JSON line (the LSAP's launches: phases 5, 7
+             and 8), the card's name and power limit, and as the last line
+             {"ok": true, "device": {...}}.
 
+Each phase prints its seconds.
 Exits non-zero, printing no result, when there is no card or the port is not
 beside this file.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -881,7 +902,10 @@ def phase_tracker(dev):
 
 # ---------------------------------------------------------------- phase 5
 
-def _framestep(dev, frame_shape, compute_dtype=None, step_cfg=None):
+def _framestep(dev, frame_shape, compute_dtype=None, step_cfg=None,
+               detector=None):
+    """A FrameStep at the CLI's default widths with random seeded weights:
+    `detector`, or SSD-MobileNetV1, and MARS."""
     import torch
     from deepdish_tpu_torch import tracker as tt
     from deepdish_tpu_torch.models import (COCO_LABELS, create_box_encoder,
@@ -889,9 +913,10 @@ def _framestep(dev, frame_shape, compute_dtype=None, step_cfg=None):
     from deepdish_tpu_torch.pipeline import FrameStep, FrameStepConfig
     # random weights give random classes, so every COCO label is wanted
     # (the CLI default, 'person' alone, would keep ~1/80 of them)
-    det = create_detector("ssd_mobilenet", device=dev, max_outputs=32,
-                          compute_dtype=compute_dtype,
-                          generator=torch.Generator().manual_seed(SEED))
+    det = detector or create_detector(
+        "ssd_mobilenet", device=dev, max_outputs=32,
+        compute_dtype=compute_dtype,
+        generator=torch.Generator().manual_seed(SEED))
     enc = create_box_encoder("mars", device=dev, compute_dtype=compute_dtype,
                              generator=torch.Generator().manual_seed(SEED + 1))
     cfg = tt.TrackerConfig(max_tracks=64, max_detections=32,
@@ -1150,10 +1175,11 @@ class _SceneCapture:
         pass
 
 
-def _run_cli(argv, n_frames):
-    """deepdish_tpu_torch.pipeline.main.amain with the scene through
-    Pipeline._open_capture. Returns (pipeline, per-frame timing ms by
-    label, frames seen by the frame step, non-finite frames)."""
+def _run_cli(argv, n_frames=None):
+    """deepdish_tpu_torch.pipeline.main.amain, with the scene's first
+    n_frames through Pipeline._open_capture (None: the CLI opens its own
+    input). Returns (pipeline, per-frame timing ms by label, frames seen by
+    the frame step, non-finite frames)."""
     import asyncio
 
     from deepdish_tpu_torch.pipeline import main as cli
@@ -1163,6 +1189,8 @@ def _run_cli(argv, n_frames):
 
     class SmokePipeline(Pipeline):
         def _open_capture(self, source):
+            if n_frames is None:
+                return super()._open_capture(source)
             return _SceneCapture(n_frames)
 
         def _device_step(self, frames_rgb):
@@ -1189,6 +1217,27 @@ def _run_cli(argv, n_frames):
     finally:
         cli.Pipeline = saved
     return seen["pipeline"], seen["timing"], seen["frames"], seen["bad"]
+
+
+@contextlib.contextmanager
+def _float32_models():
+    """The CLI's detectors and MARS in float32 on any device (the parity
+    configuration; the card's default is bf16): compute_dtype bound into
+    the registry's classes and the encoder factory while the block runs."""
+    import torch
+    from deepdish_tpu_torch.models import encoders, registry
+    names = ("SSDMobileNetDetector", "YOLOv5Detector", "YOLOv3Detector",
+             "EfficientDetLite0Detector")
+    saved = [(registry, n, getattr(registry, n)) for n in names] + \
+        [(encoders, "make_mars_encoder", encoders.make_mars_encoder)]
+    for mod, name, obj in saved:
+        setattr(mod, name, functools.partial(obj,
+                                             compute_dtype=torch.float32))
+    try:
+        yield
+    finally:
+        for mod, name, obj in saved:
+            setattr(mod, name, obj)
 
 
 def _bgsub_card_vs_cpu(dev, frames):
@@ -1361,6 +1410,42 @@ def phase_cli(dev):
                                  f"{bad} non-finite")
             del pipe
 
+        # Run 1b: the same in float32, on the card and on the CPU, at
+        # chunk 1 and 8: the card must count what the CPU counts
+        f32 = {}
+        for where in (dev.type, "cpu"):
+            for chunk_size in (1, 8):
+                lsap.launches = 0
+                t0 = time.perf_counter()
+                with _float32_models():
+                    pipe, timing, n, bad = _run_cli(
+                        common + ["--model", "ssd_mobilenet",
+                                  "--wanted-labels", ",".join(COCO_LABELS),
+                                  "--device", where,
+                                  "--chunk-size", str(chunk_size),
+                                  "--log", f"{tmp}/f32_{where}{chunk_size}"
+                                  ".log"], CLI_FRAMES)
+                f32[where, chunk_size] = {
+                    k: v for k, v in
+                    pipe.counting.counters_payload().items() if v}
+                log(f"[cli] default CLI in float32 on {where}, --chunk-size "
+                    f"{chunk_size}: {n} frames in "
+                    f"{time.perf_counter() - t0:.1f} s, {lsap.launches} "
+                    f"LSAP launches, {bad} non-finite; nonzero counters "
+                    f"{f32[where, chunk_size]}")
+                if n != CLI_FRAMES or bad:
+                    raise SystemExit(f"cli: the float32 run saw {n} frames, "
+                                     f"{bad} non-finite")
+                del pipe
+        for chunk_size in (1, 8):
+            if f32[dev.type, chunk_size] != f32["cpu", chunk_size]:
+                raise SystemExit(
+                    f"cli: float32 counters differ between the card and the "
+                    f"CPU at --chunk-size {chunk_size}: {f32}")
+        same = f32["cpu", 1] == f32["cpu", 8]
+        log(f"[cli] float32 counters: card == CPU at --chunk-size 1 and 8; "
+            f"chunk 1 vs 8 {'equal' if same else 'differ'}")
+
         # Run 2: scripted:bright, card then CPU
         counts = {}
         for where in ("cuda", "cpu"):
@@ -1389,6 +1474,383 @@ def phase_cli(dev):
 
 
 # ---------------------------------------------------------------- phase 7
+
+FAMILY_MODELS = ("yolov5s", "yolov3", "efficientdet-lite0")
+FAMILY_THRESHOLD = 0.3     # detector and pipeline score threshold
+
+
+@contextlib.contextmanager
+def _family_init():
+    """Random-init weights for the families phase: flax's default draw
+    (the port's `flax_default_init_`), then every batch norm's statistics
+    set to those of its input on two frames of the walker scene and two
+    seeded noise images (256 x 256), so that each normalizes to mean 0 and
+    variance 1 there (the noise keeps channels that are flat on the dark
+    scene from being scaled up by 1 / sqrt(1e-3)). With flax's default alone the
+    signal vanishes or explodes through the depth (YOLOv5s's heads are ~0
+    on the walker scene, every score 0.25 within 2e-4, on its 0.25 floor;
+    YOLOv3's saturate at 1), and a small change in the draw flips which;
+    calibrated, the heads are O(1) and the scores spread. Applies to the
+    three families' constructors while the block runs."""
+    import torch
+    from deepdish_tpu_torch.models import efficientdet, layers, yolov3, yolov5
+    scene = np.stack([_cli_scene(CLI_START + k)[..., ::-1]
+                      for k in (4, 20)]).astype(np.float32)
+    image = torch.cat([
+        torch.nn.functional.interpolate(
+            torch.from_numpy(scene).permute(0, 3, 1, 2), size=(256, 256),
+            mode="bilinear").permute(0, 2, 3, 1),
+        torch.from_numpy(np.random.RandomState(SEED + 20).randint(
+            0, 256, (2, 256, 256, 3)).astype(np.float32))])
+
+    def set_stats(bn, args):
+        x = args[0]
+        bn.running_mean.copy_(x.mean((0, 2, 3)))
+        bn.running_var.copy_(x.var((0, 2, 3), unbiased=False))
+
+    def init(module, generator):
+        layers.flax_default_init_(module, generator)
+        hooks = [m.register_forward_pre_hook(set_stats)
+                 for m in module.modules()
+                 if isinstance(m, layers.BatchNorm)]
+        try:
+            with torch.no_grad():
+                module(image)
+        finally:
+            for h in hooks:
+                h.remove()
+    mods = (yolov5, yolov3, efficientdet)
+    for m in mods:
+        m.flax_default_init_ = init
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.flax_default_init_ = layers.flax_default_init_
+
+
+def _tie_groups(scores, rel=1e-5):
+    """Slot ranges [a, b) whose consecutive scores lie within `rel` of each
+    other: the card and the CPU may order such slots either way."""
+    groups, a = [], 0
+    for i in range(1, len(scores) + 1):
+        if i == len(scores) or \
+                abs(scores[i] - scores[i - 1]) > rel * abs(scores[i - 1]):
+            groups.append((a, i))
+            a = i
+    return groups
+
+
+def _compare_detections(card, cpu):
+    """One frame's detector outputs (boxes, classes, scores, valid) from
+    the card and the CPU: the same valid count, and slot by slot the same
+    class, score and box, except that within a run of scores tied to 1e-5
+    (`_tie_groups` of the CPU's) the rows may come in either order, so
+    each side's run is sorted by (class, x1) first. Returns (problems, max
+    score error, max box error relative to the largest box coordinate:
+    random-weight boxes reach thousands of pixels)."""
+    (cb, cc, cs, cv), (pb, pc, ps, pv) = card, cpu
+    if cv.sum() != pv.sum():
+        return [f"{cv.sum()} valid on the card, {pv.sum()} on the CPU"], \
+            float("inf"), float("inf")
+    n = int(pv.sum())
+    problems = [] if (cv[:n].all() and pv[:n].all()) else \
+        ["valid slots are not the first ones"]
+    scale = max(float(np.abs(pb[:n]).max(initial=0)), 1.0)
+    serr = berr = 0.0
+    for a, b in _tie_groups(ps[:n]):
+        oc = a + np.lexsort((cb[a:b, 0], cc[a:b]))
+        op = a + np.lexsort((pb[a:b, 0], pc[a:b]))
+        if not np.array_equal(cc[oc], pc[op]):
+            problems.append(f"classes differ in slots {a}-{b}")
+            continue
+        serr = max(serr, float(np.abs(cs[oc] - ps[op]).max()))
+        berr = max(berr, float(np.abs(cb[oc] - pb[op]).max()) / scale)
+    return problems, serr, berr
+
+
+def phase_families(dev):
+    """YOLOv5s (320), YOLOv3 (416) and EfficientDet-Lite0 (320) at full
+    width on the walker scene: float32 detector outputs on the card against
+    the CPU port on the same resized 720p frames; FrameStep `step` and
+    `run_chunk` in bf16 (ms/frame, syncs/frame, LSAP launches); one CLI run
+    at --chunk-size 8. Returns the LSAP launches of the frame-step runs."""
+    import tempfile
+
+    import torch
+    from deepdish_tpu_torch import device as devmod
+    from deepdish_tpu_torch.kernels import lsap
+    from deepdish_tpu_torch.models import COCO_LABELS, create_detector
+    from deepdish_tpu_torch.pipeline import FrameStepConfig
+
+    frames_rgb = np.ascontiguousarray(np.stack(
+        [_cli_scene(i) for i in range(CLI_FRAMES)])[..., ::-1])
+    shape = (FRAME_H, FRAME_W)
+    step_cfg = FrameStepConfig(score_threshold=FAMILY_THRESHOLD)
+    cpu = torch.device("cpu")
+    launches_total = 0
+    for name in FAMILY_MODELS:
+        t_phase = time.perf_counter()
+        # 1. float32, card against the CPU port, two frames with blocks
+        outs = []
+        with _family_init():
+            for where in (dev, cpu):
+                det = create_detector(
+                    name, device=where, compute_dtype=torch.float32,
+                    score_threshold=FAMILY_THRESHOLD,
+                    generator=torch.Generator().manual_seed(SEED))
+                if where == dev:     # the card resizes (and letterboxes)
+                    fs = _framestep(where, shape, step_cfg=step_cfg,
+                                    detector=det)
+                    inputs = fs.detector_input(torch.from_numpy(
+                        frames_rgb[CLI_START + 6::12][:2]).to(dev)).cpu()
+                    del fs
+                elif getattr(det, "letterbox", False):
+                    det.configure_letterbox(FRAME_W, FRAME_H)
+                with torch.inference_mode():
+                    raw = det.detect(inputs.to(where), float(FRAME_W),
+                                     float(FRAME_H))
+                outs.append([x.cpu().numpy() for x in raw])
+                del det
+        report, serr, berr = [], 0.0, 0.0
+        for i in range(len(inputs)):
+            p, se, be = _compare_detections(*([x[i] for x in o]
+                                              for o in outs))
+            report += [f"frame {i}: {m}" for m in p]
+            serr, berr = max(serr, se), max(berr, be)
+        n_valid = [int(v.sum()) for v in outs[1][3]]
+        log(f"[families] {name} float32 detect, card vs CPU on "
+            f"{len(inputs)} resized 720p frames ({tuple(inputs.shape[1:3])}"
+            f"), valid {n_valid}: {len(report)} problems, max |score| "
+            f"error {serr:.3e}, max box error {berr:.3e} of the largest "
+            f"box coordinate")
+        # float32 sums in another order through ~60-130 layers of random
+        # weights: the CPU's own float32 outputs differ from float64 by up
+        # to 1e-4 of the range (EfficientDet-Lite0), which the box
+        # decode's exp carries into the boxes
+        if report or serr > 1e-4 or berr > 1e-3 or min(n_valid) <= 0:
+            raise SystemExit(f"families: {name} float32 card vs CPU: "
+                             f"{report[:6]}")
+
+        # 2. bf16 FrameStep: step over 16 frames, run_chunk over 8
+        with _family_init():
+            det = create_detector(
+                name, device=dev, score_threshold=FAMILY_THRESHOLD,
+                generator=torch.Generator().manual_seed(SEED))
+        fs = _framestep(dev, shape, step_cfg=step_cfg, detector=det)
+        seq = frames_rgb[CLI_START:CLI_START + 16]
+        chunk = frames_rgb[CLI_START + 16:CLI_START + 24]
+        state = fs.init_state()
+        for f in frames_rgb[CLI_START - 2:CLI_START]:     # warm-up
+            state, out, snap, _ = fs.step(state, f)
+        fs.run_chunk(fs.init_state(), chunk)
+        _sync(dev)
+        lsap.launches = 0
+        devmod.host_syncs = 0
+        dets = []
+        t0 = time.perf_counter()
+        for f in seq:
+            state, out, snap, _ = fs.step(state, f)
+            dets.append(snap.valid.sum())
+        _sync(dev)
+        step_ms = (time.perf_counter() - t0) / len(seq) * 1e3
+        step_syncs = devmod.host_syncs / len(seq)
+        step_launches = lsap.launches
+        _check_outputs(out, snap, 64, 32)
+        devmod.host_syncs = 0
+        t0 = time.perf_counter()
+        state, couts, csnaps = fs.run_chunk(state, chunk)
+        _sync(dev)
+        chunk_ms = (time.perf_counter() - t0) / len(chunk) * 1e3
+        chunk_syncs = devmod.host_syncs / len(chunk)
+        _check_outputs(couts, csnaps, 64, 32)
+        launches = lsap.launches
+        launches_total += launches
+        log(f"[families] {name} bf16 FrameStep 720p (input "
+            f"{det.width}x{det.height}, score threshold {FAMILY_THRESHOLD}, "
+            f"bgsub off): step {step_ms:.3f} ms/frame, {step_syncs:.2f} host "
+            f"syncs/frame, detections/frame {[int(d) for d in dets]}; "
+            f"run_chunk(8) {chunk_ms:.3f} ms/frame, {chunk_syncs:.2f} host "
+            f"syncs/frame; LSAP launches {step_launches} in step, "
+            f"{launches - step_launches} in run_chunk")
+        if launches <= 0:
+            raise SystemExit(f"families: {name}: the LSAP kernel never "
+                             "launched")
+        del fs, det, state
+
+        # 3. the CLI at --chunk-size 8 (bgsub on, the CLI default)
+        lsap.launches = 0
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp, _family_init():
+            pipe, timing, n, bad = _run_cli(
+                ["--input", "synthetic://walkers", "--disable-graphics",
+                 "--streaming", "0", "--control-port", "0",
+                 "--model", name, "--wanted-labels", ",".join(COCO_LABELS),
+                 "--device", dev.type,
+                 "--score-threshold", str(FAMILY_THRESHOLD),
+                 "--chunk-size", "8", "--log", f"{tmp}/{name}.log"],
+                CLI_FRAMES)
+        skip = 8
+        counters = {k: v for k, v in
+                    pipe.counting.counters_payload().items() if v}
+        log(f"[families] {name} CLI 720p --chunk-size 8 "
+            f"({pipe.framestep.detector.compute_dtype}, bgsub on): {n} "
+            f"frames in {time.perf_counter() - t0:.1f} s, objd "
+            f"{float(np.mean(timing['objd'][skip:])):.3f} ms/frame, e2e "
+            f"{float(np.mean(timing['e2e'][skip:])):.3f} ms/frame (mean over "
+            f"frames {skip + 1}-{n}), {lsap.launches} LSAP launches, {bad} "
+            f"frames with non-finite outputs; nonzero counters {counters}; "
+            f"{name} took {time.perf_counter() - t_phase:.1f} s")
+        if n != CLI_FRAMES or bad:
+            raise SystemExit(f"families: {name} CLI saw {n} frames, {bad} "
+                             "non-finite")
+        del pipe
+    return launches_total
+
+
+# ---------------------------------------------------------------- phase 8
+
+CVAT_FIRST, CVAT_FRAMES = CLI_START - 2, 28
+CVAT_WALKER = 1            # the annotated walker
+
+
+def _write_cvat_input(d):
+    """The walker scene's frames CVAT_FIRST.. as images/frame_%06d.jpg
+    from 1, and an annotations.xml with one person track on walker
+    CVAT_WALKER's block while it is in the scene."""
+    import os
+    import xml.etree.ElementTree as ET
+
+    import cv2
+    os.makedirs(f"{d}/images")
+    for j in range(CVAT_FRAMES):
+        cv2.imwrite(f"{d}/images/frame_{j + 1:06d}.jpg",
+                    _cli_scene(CVAT_FIRST + j))
+    root = ET.Element("annotations")
+    labels = ET.SubElement(ET.SubElement(ET.SubElement(
+        root, "meta"), "task"), "labels")
+    lab = ET.SubElement(labels, "label")
+    ET.SubElement(lab, "name").text = "person"
+    ET.SubElement(lab, "color").text = "#ff0000"
+    track = ET.SubElement(root, "track", attrib={"id": "1",
+                                                 "label": "person"})
+    for j in range(CVAT_FRAMES):
+        i = CVAT_FIRST + j
+        if i < CLI_START:
+            continue
+        x, y = _cli_block(CVAT_WALKER, i)
+        ET.SubElement(track, "box", attrib={
+            "frame": str(j + 1), "outside": "0", "occluded": "0",
+            "keyframe": "1", "z_order": "0", "xtl": str(x), "ytl": str(y),
+            "xbr": str(x + 120), "ybr": str(y + 90)})
+    ET.ElementTree(root).write(f"{d}/annotations.xml")
+
+
+def _bright_detect_only(self, state, frame_rgb):
+    """FrameStep.detect_only replaced by the bright-block script
+    (models.registry's scripted:bright boxes), on the frame step's device:
+    the same boxes on the card and the CPU."""
+    import torch
+    from deepdish_tpu_torch.models.registry import _bright_blob_script
+    from deepdish_tpu_torch.pipeline import DetectionSnapshot
+    D = self.tracker_cfg.max_detections
+    boxes, _, scores = _bright_blob_script(np.asarray(frame_rgb))
+    tlwh = np.zeros((D, 4), np.float32)
+    score = np.zeros((D,), np.float32)
+    valid = np.zeros((D,), bool)
+    for i, (b, sc) in enumerate(zip(boxes[:D], scores)):
+        tlwh[i], score[i], valid[i] = b, sc, True
+    return state.bg, DetectionSnapshot(*(
+        torch.from_numpy(a).to(self.device)
+        for a in (tlwh, np.zeros((D,), np.int32), score, valid)))
+
+
+def phase_cvat(dev):
+    """CVAT split mode through the CLI on a JPEG sequence of the walker
+    scene with one annotated track: float32 with a scripted detect_only on
+    the card and on the CPU (identical annotations.xml), then the random
+    SSD in bf16 on the card. Returns the card runs' LSAP launches."""
+    import os
+    import tempfile
+
+    from deepdish_tpu_torch import device as devmod
+    from deepdish_tpu_torch.kernels import lsap
+    from deepdish_tpu_torch.models import COCO_LABELS
+    from deepdish_tpu_torch.pipeline import FrameStep
+
+    common = ["--disable-graphics", "--streaming", "0", "--control-port",
+              "0", "--max-detections", "8"]
+    xmls, launches_total = {}, 0
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_cvat_input(f"{tmp}/in")
+        saved = FrameStep.detect_only
+        FrameStep.detect_only = _bright_detect_only
+        try:
+            for where in (dev.type, "cpu"):
+                lsap.launches = 0
+                devmod.host_syncs = 0
+                t0 = time.perf_counter()
+                with _float32_models():
+                    pipe, timing, n, bad = _run_cli(common + [
+                        "--input-cvat-dir", f"{tmp}/in",
+                        "--output-cvat-dir", f"{tmp}/out_{where}",
+                        "--model", "scripted:noop", "--encoder-model",
+                        "mars", "--wanted-labels", "person",
+                        "--device", where])
+                with open(f"{tmp}/out_{where}/annotations.xml", "rb") as f:
+                    xmls[where] = f.read()
+                if where == dev.type:
+                    launches_total += lsap.launches
+                log(f"[cvat] float32, scripted detect_only, on {where}: {n} "
+                    f"frames in {time.perf_counter() - t0:.1f} s, objd "
+                    f"{float(np.mean(timing['objd'][4:])):.3f} ms/frame, "
+                    f"{devmod.host_syncs / max(n, 1):.2f} host syncs/frame, "
+                    f"{lsap.launches} LSAP launches, {bad} non-finite; "
+                    f"{xmls[where].count(b'<track ')} tracks, "
+                    f"{xmls[where].count(b'<box ')} boxes in "
+                    "annotations.xml")
+                if n != CVAT_FRAMES or bad:
+                    raise SystemExit(f"cvat: the {where} run saw {n} "
+                                     f"frames, {bad} non-finite")
+                del pipe
+        finally:
+            FrameStep.detect_only = saved
+        card = xmls[dev.type]
+        if card != xmls["cpu"] or b'source="manual"' not in card or \
+                b'source="automatic"' not in card:
+            raise SystemExit("cvat: the card's annotations.xml differs from "
+                             "the CPU's (or lacks manual/automatic tracks)")
+        log("[cvat] annotations.xml identical on the card and the CPU "
+            f"({len(card)} bytes)")
+        if launches_total <= 0:
+            raise SystemExit("cvat: the LSAP kernel never launched")
+
+        lsap.launches = 0
+        devmod.host_syncs = 0
+        t0 = time.perf_counter()
+        pipe, timing, n, bad = _run_cli(common + [
+            "--input-cvat-dir", f"{tmp}/in", "--output-cvat-dir",
+            f"{tmp}/out_ssd", "--device", dev.type, "--model", "ssd_mobilenet",
+            "--wanted-labels", ",".join(COCO_LABELS)])
+        out = f"{tmp}/out_ssd/annotations.xml"
+        with open(out, "rb") as f:
+            xml = f.read()
+        log(f"[cvat] random SSD + MARS in "
+            f"{pipe.framestep.detector.compute_dtype} on the card: {n} "
+            f"frames in {time.perf_counter() - t0:.1f} s, objd "
+            f"{float(np.mean(timing['objd'][4:])):.3f} ms/frame, "
+            f"{devmod.host_syncs / max(n, 1):.2f} host syncs/frame, "
+            f"{lsap.launches} LSAP launches, {bad} non-finite; "
+            f"{xml.count(b'<track ')} tracks in annotations.xml "
+            f"({os.path.getsize(out)} bytes)")
+        if n != CVAT_FRAMES or bad or lsap.launches <= 0:
+            raise SystemExit(f"cvat: the SSD run saw {n} frames, {bad} "
+                             f"non-finite, {lsap.launches} LSAP launches")
+        launches_total += lsap.launches
+    return launches_total
+
+
+# ---------------------------------------------------------------- phase 9
 
 def phase_probe(dev):
     """The ported probe at full width through its entry point; returns the
@@ -1440,15 +1902,26 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    phase_build()
-    entry = phase_kernel(dev)
-    ds_entries = phase_dsconv(dev)
-    phase_tracker(dev)
-    phase_reference(dev)
-    launches, _ = phase_slice(dev)
-    entry["launches"] = launches
-    phase_cli(dev)
-    by_stride = phase_probe(dev)
+    t_start = time.perf_counter()
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        log(f"[time] phase {name}: {time.perf_counter() - t0:.1f} s "
+            f"({time.perf_counter() - t_start:.1f} s so far)")
+        return result
+
+    timed("build", phase_build)
+    entry = timed("kernel", phase_kernel, dev)
+    ds_entries = timed("dsconv", phase_dsconv, dev)
+    timed("tracker", phase_tracker, dev)
+    timed("reference", phase_reference, dev)
+    entry["launches"], _ = timed("slice", phase_slice, dev)
+    timed("cli", phase_cli, dev)
+    # the LSAP launches of the main path: the slice and both new paths
+    entry["launches"] += timed("families", phase_families, dev)
+    entry["launches"] += timed("cvat", phase_cvat, dev)
+    by_stride = timed("probe", phase_probe, dev)
     for e, s in zip(ds_entries, (1, 2)):
         e["launches"] = by_stride[s]
     log(json.dumps({"kernels": [entry] + ds_entries}))

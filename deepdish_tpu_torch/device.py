@@ -17,13 +17,15 @@ Precision, set by `resolve_device` for CUDA devices:
 Host syncs: eager PyTorch turns the JAX program's data-dependent loops (the
 NMS fixpoint, the matching cascade, the IoU-stage branch) into Python
 control flow that reads the device. Each such read goes through
-`sync_bool`/`sync_int`, which count them in `host_syncs`, so a run can
-report its syncs per frame.
+`sync_bool`/`sync_int`, and each copy of outputs to the host through
+`sync_numpy`; they count them in `host_syncs`, so a run can report its
+syncs per frame.
 """
 from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 MATMUL_ALLOW_TF32 = False
@@ -67,3 +69,10 @@ def sync_int(t: torch.Tensor) -> int:
     global host_syncs
     host_syncs += 1
     return int(t)
+
+
+def sync_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as host numpy: one counted host sync."""
+    global host_syncs
+    host_syncs += 1
+    return t.cpu().numpy()

@@ -1,11 +1,15 @@
-"""Detector registry: the SSD-MobileNet and scripted subsets of
-deepdish_tpu/models/registry.py (`create_detector` :183).
+"""Detector registry: deepdish_tpu/models/registry.py (`create_detector`
+:183) without what is still to be ported.
 
 The reference picks its detector backend by model-filename substring
-(deepdish.py:482-502). This port has the SSD-MobileNetV1 family ('ssd',
-'mobilenet', 'edgetpu') and the weightless host-scripted detectors
-('scripted:<name>'); the other families and the quantized paths come in
-later slices and raise here.
+(deepdish.py:482-502). As in the JAX package, 'scripted:<name>' gives a
+weightless host-scripted detector, then 'yolov5' YOLOv5s, 'yolo' YOLOv3,
+'efficientdet' (or a non-SSD '.tflite' name) EfficientDet-Lite0, and
+'ssd' / 'mobilenet' / 'edgetpu' SSD-MobileNetV1. Weights come from a flat
+.npz of the JAX package's variables or random init. Still to be ported,
+and raising here: Faster R-CNN and SavedModel directories, the quantized
+paths (--quantized-inference, --detector-int8), and the conversion of
+.tflite, .h5 and .pb files (convert them to .npz with the JAX package).
 """
 from __future__ import annotations
 
@@ -14,7 +18,10 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from .efficientdet import EfficientDetLite0Detector
 from .ssd_mobilenet import SSDMobileNetDetector
+from .yolov3 import YOLOv3Detector
+from .yolov5 import YOLOv5Detector
 
 # COCO labelmap (91-entry TF-OD style with background dropped), the label
 # vocabulary behind the reference's coco_labelmap.txt
@@ -120,6 +127,44 @@ class ScriptedDetector:
         return boxes, classes, scores
 
 
+def _family(name: str) -> str:
+    """The weight family a model name selects (the JAX package's order)."""
+    if "yolov5" in name:
+        return "yolov5"
+    if "yolo" in name:
+        return "yolov3"
+    if "efficientdet" in name or ("tflite" in name and not _is_ssd(name)):
+        return "efficientdet"
+    return "ssd"
+
+
+def _is_ssd(name: str) -> bool:
+    # 'edgetpu' names are Coral SSD exports (deepdish.py:483-485)
+    return "ssd" in name or "mobilenet" in name or "edgetpu" in name
+
+
+def _load_npz_weights(model_name: str, family: str,
+                      allow_random_weights: bool):
+    """A port state_dict from a flat .npz of the JAX package's variables
+    for `family`; None (random init) for any other file when
+    `allow_random_weights`, else a ValueError."""
+    if model_name.endswith(".npz"):
+        from . import weights as w
+        bridge = {"yolov5": w.yolov5_from_flax, "yolov3": w.yolov3_from_flax,
+                  "efficientdet": w.efficientdet_from_flax,
+                  "ssd": w.ssd_from_flax}[family]
+        return bridge(w._flatten(w.load_npz(model_name)))
+    if not allow_random_weights:
+        raise ValueError(
+            f"{model_name}: the port loads {family} weights from a .npz of "
+            "the JAX package's variables only; converting .tflite, .h5 and "
+            f".pb files {_LATER} (convert with the JAX package first); pass "
+            "--allow-random-weights to run without pre-trained weights")
+    print(f"{model_name} not recognized as a weight artifact; "
+          "running with random-init weights")
+    return None
+
+
 def create_detector(model_name: str = "ssd_mobilenet", wanted_labels=None,
                     label_file=None, score_threshold: float = 0.5,
                     state_dict=None, max_outputs: int = 32,
@@ -128,15 +173,18 @@ def create_detector(model_name: str = "ssd_mobilenet", wanted_labels=None,
                     calib_images=None, label_allow=None, label_deny=None,
                     max_results: int = -1, device=None, **kw):
     """Substring dispatch like deepdish.py:482-502, with the JAX package's
-    keywords. 'scripted:<name>' gives a ScriptedDetector; an 'ssd' /
-    'mobilenet' / 'edgetpu' name gives SSD-MobileNetV1 on `device` (default
-    CUDA) with weights from `state_dict`, a flat .npz of the JAX package's
-    variables named by `model_name`, or random init (`generator` in **kw).
-    A weight file that is not such an .npz raises unless
-    `allow_random_weights`. `label_allow`, `label_deny` and `max_results`
-    belong to the EfficientDet family and `calib_images` to the int8 SSD,
-    as in the JAX package: the SSD ignores them."""
-    del calib_images, label_allow, label_deny, max_results
+    keywords and order: 'scripted:<name>' gives a ScriptedDetector; then
+    'yolov5', 'yolo', 'efficientdet' (or a non-SSD '.tflite' name) and
+    'ssd' / 'mobilenet' / 'edgetpu' give that family's detector on `device`
+    (default CUDA), with weights from `state_dict`, a flat .npz of the JAX
+    package's variables named by `model_name`, or random init (`generator`
+    and `compute_dtype` in **kw). A weight file that is not such an .npz
+    raises unless `allow_random_weights`. `label_allow`, `label_deny` and
+    `max_results` configure EfficientDet's result filter; `calib_images`
+    belongs to the int8 SSD, which is not ported yet. Faster R-CNN,
+    SavedModel directories and the quantized paths raise
+    NotImplementedError."""
+    del calib_images
     name = (model_name or "ssd_mobilenet").lower()
     if "scripted" in name:
         key = name.split("scripted:", 1)[1] if "scripted:" in name else None
@@ -148,32 +196,52 @@ def create_detector(model_name: str = "ssd_mobilenet", wanted_labels=None,
         return ScriptedDetector(script, wanted_labels=wanted_labels)
     if quantized:
         raise NotImplementedError(f"--quantized-inference {_LATER}, with "
-                                  "models/qgraph.py (item 16)")
+                                  "models/qgraph.py (item 8)")
     is_file = bool(model_name) and os.path.isfile(model_name)
-    if detector_int8 or (not is_file and "int8" in name):
-        raise NotImplementedError(f"--detector-int8 {_LATER}, with "
-                                  "models/ssd_q.py (item 16)")
-    if not ("ssd" in name or "mobilenet" in name or "edgetpu" in name):
-        raise ValueError(f"{model_name!r}: the port has the SSD-MobileNetV1 "
-                         f"detector only; other families {_LATER}")
-    if state_dict is None and is_file:
-        if name.endswith(".npz"):
-            from .weights import _flatten, load_npz, ssd_from_flax
-            state_dict = ssd_from_flax(_flatten(load_npz(model_name)))
-        elif not allow_random_weights:
+    if model_name and os.path.isdir(model_name):
+        if "saved_model" in name:
+            raise NotImplementedError(
+                f"{model_name}: SavedModel directories {_LATER}, with "
+                "models/convert.py and models/faster_rcnn.py")
+        if not allow_random_weights:
             raise ValueError(
-                f"{model_name}: the port loads SSD weights from a .npz of "
-                "the JAX package's variables (convert other artifacts with "
-                "the JAX package first); pass --allow-random-weights to run "
-                "without pre-trained weights")
-        else:
-            print(f"{model_name} not recognized as a weight artifact; "
-                  "running with random-init weights")
-    det = SSDMobileNetDetector(state_dict=state_dict, max_outputs=max_outputs,
-                               score_threshold=score_threshold,
-                               device=device, **kw)
+                f"{model_name} is a directory; SavedModel directories are "
+                "selected by the 'saved_model' substring (deepdish.py:489) "
+                "- rename the path or pass --allow-random-weights to run "
+                "without pre-trained weights.")
+    if "faster_rcnn" in name or "frcnn" in name:
+        raise NotImplementedError(f"Faster R-CNN ({model_name}) {_LATER}, "
+                                  "with models/faster_rcnn.py")
+    family = _family(name)
+    if state_dict is None and is_file:
+        state_dict = _load_npz_weights(model_name, family,
+                                       allow_random_weights)
+    common = dict(state_dict=state_dict, max_outputs=max_outputs,
+                  device=device, **kw)
+    if family == "yolov5":
+        det = YOLOv5Detector(score_threshold=max(score_threshold, 0.25),
+                             **common)
+    elif family == "yolov3":          # yolov3 / yolo.h5 (deepdish.py:486)
+        det = YOLOv3Detector(score_threshold=score_threshold, **common)
+    elif family == "efficientdet":
+        # the metadata's default normalization (mean 127, std 128); a
+        # flatbuffer's own metadata and labels come with its conversion
+        det = EfficientDetLite0Detector(
+            score_threshold=score_threshold, label_allow=label_allow,
+            label_deny=label_deny, max_results=max_results, **common)
+    elif _is_ssd(name):
+        if detector_int8 or (not is_file and "int8" in name):
+            raise NotImplementedError(f"--detector-int8 {_LATER}, with "
+                                      "models/ssd_q.py (item 8)")
+        det = SSDMobileNetDetector(score_threshold=score_threshold,
+                                   **common)
+    else:
+        raise ValueError(
+            f"cannot determine detector backend from {model_name!r}")
     # the reference adaptor's +1 labelmap offset is already applied:
     # COCO_LABELS has no background entry
     det.labels = dict(enumerate(load_labels(label_file)))
     det.label_offset = 0
+    if family == "efficientdet":
+        det.finalize_label_filter()
     return det

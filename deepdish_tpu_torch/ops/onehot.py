@@ -45,6 +45,13 @@ def argsort_desc_tie_high(scores: torch.Tensor) -> torch.Tensor:
     return torch.flip(stable_argsort(scores), dims=(-1,))
 
 
+def gather_rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """values (..., N, C), idx (..., K) -> (..., K, C): out[..., k, :] =
+    values[..., idx[..., k], :] (the batched onehot.py:65)."""
+    return values.gather(-2, idx[..., None].expand(
+        idx.shape + values.shape[-1:]))
+
+
 def scatter_rows_unique(base: torch.Tensor, idx: torch.Tensor,
                         upd: torch.Tensor) -> torch.Tensor:
     """Copy of `base` with out[idx[k]] = upd[k]; idx entries in range must

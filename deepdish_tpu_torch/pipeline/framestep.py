@@ -1,14 +1,16 @@
 """The per-frame detect -> embed -> track step and the chunked engine.
 
 Port of deepdish_tpu/pipeline/framestep.py `FrameStep` (`_step` :256,
-`_track_only` :263, `_scripted_step` :295, `_run_chunk` :346,
-`_run_chunk_yuv` :373). One `step` takes a uint8 RGB frame and the pipeline
-state through: MOG2 background subtraction (when configured), bilinear
-resize to the detector's input, SSD-MobileNetV1, box decode and per-class
-NMS, the wanted-label / NaN / clip / spurious-area / motion-ratio filters and
-the pipeline's class-agnostic NMS, aspect-corrected crops, the MARS
-embedding, and `tracker.step` (whose assignment solves run in the CUDA LSAP
-kernel on the card).
+`_track_only` :263, `_detect_only` :272, `_encode_track` :282,
+`_scripted_step` :295, `_run_chunk` :346, `_run_chunk_yuv` :373). One
+`step` takes a uint8 RGB frame and the pipeline state through: MOG2
+background subtraction (when configured), bilinear resize to the
+detector's input (letterboxed for YOLOv3), the detector (SSD-MobileNetV1,
+YOLOv5s, YOLOv3 or EfficientDet-Lite0) with its decode and NMS, the
+wanted-label / NaN / clip / spurious-area / motion-ratio filters and the
+pipeline's class-agnostic NMS, aspect-corrected crops, the MARS embedding,
+and `tracker.step` (whose assignment solves run in the CUDA LSAP kernel on
+the card).
 
 Reference-fidelity notes (for crossing-count parity), as in the JAX
 version:
@@ -23,13 +25,15 @@ version:
 order (its state is temporal), the detector runs batched over the frames,
 MARS over all F * E crops at once, then the tracker steps through the frames
 in order. `run_chunk_yuv` takes I420 frames and converts them on the device
-first.
+first. `detect_only` and `encode_track` split `step` in two for CVAT
+mode, where the host merges annotations into the detections in between.
 
 Each stage runs inside a `torch.profiler.record_function` range
-("framestep.upload", "framestep.bgsub", "framestep.resize", "ssd.net",
-"ssd.decode_nms", "framestep.filter_nms", "framestep.crop_mars",
-"framestep.tracker"), so a profiler run splits a frame's time by stage;
-without a profiler the ranges record nothing.
+("framestep.upload", "framestep.bgsub", "framestep.resize",
+"<family>.net", "<family>.decode_nms" (ssd, yolov5, yolov3, efficientdet),
+"framestep.filter_nms", "framestep.crop_mars", "framestep.tracker"), so
+a profiler run splits a frame's time by stage; without a profiler the
+ranges record nothing.
 """
 from __future__ import annotations
 
@@ -111,6 +115,13 @@ class FrameStep:
         self._label_lut = torch.from_numpy(lut).to(self.device)
         D = tracker_cfg.max_detections
         self._enc_cap = min(step_cfg.encode_capacity or D, D)
+        # YOLOv3's aspect-preserving resize onto a gray-128 canvas
+        # (tools/yolo.py:141-151): (left, top, new_w, new_h), fixed for the
+        # frame size; configuring it also sets the geometry the detector's
+        # decode undoes
+        self._letterbox = (
+            detector.configure_letterbox(self.frame_w, self.frame_h)
+            if getattr(detector, "letterbox", False) else None)
 
     # ---- pieces ----
 
@@ -219,13 +230,24 @@ class FrameStep:
                              valid=snap.valid)
         return dets, snap
 
-    def _detect_raw(self, frames: torch.Tensor):
-        """(F, H, W, 3) uint8 -> raw detector outputs stacked on F."""
+    def detector_input(self, frames: torch.Tensor) -> torch.Tensor:
+        """(F, H, W, 3) uint8 frames -> the detector's float32 input
+        (F, height, width, 3): a bilinear resize, or for a letterboxing
+        detector an aspect-preserving resize padded with 128."""
         det = self.detector
         with record_function("framestep.resize"):
-            resized = resize_bilinear_mxu(frames, det.height, det.width,
-                                          det.compute_dtype)
-        return det.detect(resized, float(self.frame_w), float(self.frame_h))
+            if self._letterbox is None:
+                return resize_bilinear_mxu(frames, det.height, det.width,
+                                           det.compute_dtype)
+            left, top, nw, nh = self._letterbox
+            small = resize_bilinear_mxu(frames, nh, nw, det.compute_dtype)
+            return nnf.pad(small, (0, 0, left, det.width - nw - left,
+                                   top, det.height - nh - top), value=128.0)
+
+    def _detect_raw(self, frames: torch.Tensor):
+        """(F, H, W, 3) uint8 -> raw detector outputs stacked on F."""
+        return self.detector.detect(self.detector_input(frames),
+                                    float(self.frame_w), float(self.frame_h))
 
     def _detect_encode_frames(self, frames: torch.Tensor, integrals=None):
         """(F, H, W, 3) -> (Detections, DetectionSnapshot) stacked on F:
@@ -301,6 +323,38 @@ class FrameStep:
         dets, snap = self._postprocess_raw(frame, integral, *raw)
         state, out = self._track(state, bg, dets)
         return state, out, snap
+
+    @torch.inference_mode()
+    def detect_only(self, state: PipelineState, frame_rgb):
+        """CVAT split mode, first half (the host must see the post-NMS
+        detections before encoding, deepdish.py:995 -> 1001): bgsub, the
+        detector, the filters and NMS on one frame. Returns (new MOG2 state
+        or None, DetectionSnapshot)."""
+        frame = self._frames(frame_rgb)
+        bg, integral, frame = self._apply_bgsub(state.bg, frame)
+        raw = tuple(r[0] for r in self._detect_raw(frame[None]))
+        with record_function("framestep.filter_nms"):
+            snap = self._filter_and_nms(integral, *raw)
+        return bg, snap
+
+    @torch.inference_mode()
+    def encode_track(self, state: PipelineState, frame_rgb, tlwh, labels,
+                     scores, valid):
+        """CVAT split mode, second half: crop and embed the (annotation-
+        merged) (D, 4) boxes on the current frame, all D of them (not the
+        fused step's encode capacity), then track. Returns (state,
+        TrackStepOutput, DetectionSnapshot, Detections)."""
+        frame = self._frames(frame_rgb)
+        tlwh, labels, scores, valid = (self._frames(a) for a in
+                                       (tlwh, labels, scores, valid))
+        with record_function("framestep.crop_mars"):
+            feats, _ok = self.encoder.encode_boxes(frame, tlwh, valid)
+        dets = tt.Detections(tlwh=tlwh, confidence=scores, label=labels,
+                             feature=feats, valid=valid)
+        state, out = self._track(state, state.bg, dets)
+        snap = DetectionSnapshot(tlwh=tlwh, label=labels, score=scores,
+                                 valid=valid)
+        return state, out, snap, dets
 
     @torch.inference_mode()
     def run_chunk(self, state: PipelineState, frames_rgb):

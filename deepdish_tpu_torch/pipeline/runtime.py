@@ -23,8 +23,12 @@ Differences from the JAX runtime:
     DetectionSnapshot to host numpy in one copy; the analytics stages run on
     numpy, as in the JAX package;
   * --profile-dir writes a torch.profiler trace;
-  * CVAT mode, --quantized-inference and --detector-int8 raise (a later
-    slice of the port);
+  * CVAT mode reads each frame's detections and track outputs on the
+    host between the two halves of the step (two device-to-host copies a
+    frame, three on a frame with a track override), the reference's own
+    ordering;
+  * --quantized-inference and --detector-int8 raise (a later slice of the
+    port);
   * the capture source is opened in one method, `_open_capture`
     (cv2.VideoCapture), which tests and chip_smoke.py replace with a numpy
     frame source; cv2 and PIL are imported only where a file or camera is
@@ -48,9 +52,12 @@ try:
 except ImportError:  # pragma: no cover
     psutil = None
 
+from .. import device as devmod
 from .. import tracker as tt
 from ..device import resolve_device
 from ..models import create_box_encoder, create_detector
+from ..ops import boxes as boxops
+from ..tracker.overrides import delete_slots, force_update_slots
 from .camera3d import GroundCamera
 from .checkpoint import load_state, save_state
 from .counting import CountingState
@@ -59,6 +66,7 @@ from .elements import (CameraCountLine, CameraImage, CountingStats,
                        RenderInfo, TempInfo, TimingInfo, TopDownObj,
                        TopDownView, TrackedObject, TrackedPath,
                        TrackedPathIntersection)
+from .framerecords import FrameRecords
 from .framestep import FrameStep, FrameStepConfig, PipelineState
 from .mjpeg import MJPEGServer, StreamingInfo
 from .mqtt import MQTTClient
@@ -158,8 +166,8 @@ def to_host(*tuples):
     arrays, through ONE device-to-host copy (every field's bytes are packed
     into one buffer on the device first)."""
     fields = [t for nt in tuples for t in nt]
-    flat = torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
-                      for t in fields]).cpu().numpy()
+    flat = devmod.sync_numpy(torch.cat(
+        [t.contiguous().reshape(-1).view(torch.uint8) for t in fields]))
     arrays, at = [], 0
     for t in fields:
         dtype = np.dtype(str(t.dtype).replace("torch.", ""))
@@ -187,11 +195,6 @@ class Pipeline:
 
     def __init__(self, args):
         self.args = args
-        if args.input_cvat_dir is not None or \
-                args.output_cvat_dir is not None:
-            raise NotImplementedError(
-                f"CVAT mode (--input-cvat-dir / --output-cvat-dir) {_LATER}, "
-                "with tracker/overrides.py and framerecords.py")
         if getattr(args, 'quantized_inference', False):
             raise NotImplementedError(
                 f"--quantized-inference {_LATER}, with models/qgraph.py")
@@ -263,6 +266,17 @@ class Pipeline:
         self.state = self.framestep.init_state()
         self._prev_raw = None
         self._skip_rem = 0
+
+        # CVAT annotation merge (deepdish.py:613-641, framerecords.py)
+        self.framerec = None
+        if args.input_cvat_dir is not None or \
+                args.output_cvat_dir is not None:
+            self.framerec = FrameRecords(self.detector.labels)
+            if args.input_cvat_dir is not None:
+                xml = os.path.join(args.input_cvat_dir, 'annotations.xml')
+                if os.path.exists(xml):
+                    self.framerec = FrameRecords.from_cvat_xml(
+                        xml, self.detector.labels)
 
         # analytics
         self.counting = CountingState(self.wanted_labels,
@@ -401,7 +415,13 @@ class Pipeline:
         self.simcam = None
         self.everyframe = None
         self.input = args.input
-        if self.input is None:
+        if args.input_cvat_dir is not None:
+            # the annotated frame sequence, handed over frame by frame
+            self.input = os.path.join(args.input_cvat_dir,
+                                      'images/frame_%06d.jpg')
+            self.everyframe = threading.Event()
+            args.disable_powersaving = True
+        elif self.input is None:
             if args.gstreamer is not None:
                 self.input = args.gstreamer
             elif args.gstreamer_nvidia:
@@ -457,12 +477,13 @@ class Pipeline:
         (native/frameloader.cpp) straight to I420 and convert to RGB on the
         device (FrameStep.run_chunk_yuv). Falls back to the capture thread
         when the loader cannot be built (no OpenCV) or the input needs host
-        preprocessing (flip, simulated camera)."""
+        preprocessing (CVAT, flip, simulated camera)."""
         args = self.args
         self.native_loader = None
         self.native_yuv = False
         if (int(args.chunk_size) > 1 and isinstance(self.input, str)
                 and os.path.isfile(self.input)
+                and args.input_cvat_dir is None
                 and not args.camera_flip and self.simcam is None):
             try:
                 from ..utils.native import (NativeFrameLoader,
@@ -503,7 +524,13 @@ class Pipeline:
         fps = self.cap.get(CAP_PROP_FPS) or 15
         self.backbuf = Image.new("RGBA", self.input_size, (0, 0, 0, 0))
         self.draw = ImageDraw.Draw(self.backbuf)
-        if args.output:
+        if args.output_cvat_dir is not None:
+            # one image a frame: images/frame_%06d.jpg
+            outpath = os.path.join(args.output_cvat_dir, 'images',
+                                   'frame_%06d.jpg')
+            os.makedirs(os.path.dirname(outpath), exist_ok=True)
+            self.output = cv2.VideoWriter(outpath, 0, 0, self.input_size)
+        elif args.output:
             self.output = cv2.VideoWriter(args.output, fourcc, fps,
                                           self.input_size)
         self.fontlib = FontLib(self.input_size[0])
@@ -758,9 +785,67 @@ class Pipeline:
         print(f'Appearance gallery grown to {new_size} features/track '
               '(exact unbounded-gallery parity).')
 
+    def _cvat_step(self, frame_rgb, framenum):
+        """Split-mode step with the host annotation merge between NMS and
+        encoding (the reference's ordering, deepdish.py:995 -> 1001 ->
+        1008). Returns (TrackStepOutput, DetectionSnapshot) of numpy."""
+        fs = self.framestep
+        frame = np.ascontiguousarray(frame_rgb)
+        bg, snap = fs.detect_only(self.state, frame)
+        self.state = self.state._replace(bg=bg)
+        snap, = to_host(snap)
+        valid = snap.valid
+        labels = [self.wanted_labels[i] for i in snap.label[valid]]
+        bo, lo, so = self.framerec.process_boxes(
+            framenum, list(snap.tlwh[valid]), labels,
+            list(snap.score[valid]))
+        D = self.tracker_cfg.max_detections
+        n = min(len(bo), D)
+        p_tlwh = np.zeros((D, 4), np.float32)
+        p_scores = np.zeros((D,), np.float32)
+        p_labels = np.zeros((D,), np.int32)
+        p_valid = np.zeros((D,), bool)
+        for i in range(n):
+            p_tlwh[i] = bo[i]
+            p_scores[i] = so[i]
+            name = lo[i]
+            p_labels[i] = (self.wanted_labels.index(name)
+                           if name in self.wanted_labels else 0)
+            p_valid[i] = True
+        self.state, out_dev, snap2, dets = fs.encode_track(
+            self.state, frame, p_tlwh, p_labels, p_scores, p_valid)
+        out, snap2 = to_host(out_dev, snap2)
+        ids, states = out.track_id, out.state
+        self.framerec.link_frame(framenum, ids, out.matched_det)
+        self.framerec.link_new_tracks(framenum, ids, states, out.hits)
+        slot_det, delmask = self.framerec.tracking_overrides(
+            framenum, ids, states, out.time_since_update)
+        forced = (slot_det >= 0).any()
+        if forced or delmask.any():
+            cfg, table = self.tracker_cfg, self.state.table
+            if forced:
+                table = force_update_slots(
+                    cfg, table, torch.from_numpy(slot_det).to(self.device),
+                    dets)
+            if delmask.any():
+                table = delete_slots(
+                    cfg, table, torch.from_numpy(delmask).to(self.device))
+            self.state = self.state._replace(table=table)
+            out, = to_host(out_dev._replace(
+                state=table.state,
+                time_since_update=table.time_since_update,
+                hits=table.hits, track_id=table.track_id,
+                tlwh=boxops.xyah_to_tlwh(table.mean[:, :4]),
+                label_count=table.label_count,
+                label_conf=table.label_conf))
+        return out, snap2
+
     def _device_step(self, frames_rgb):
         """Run the frame step; returns per-frame (TrackStepOutput,
         DetectionSnapshot) pairs of host numpy."""
+        if self.framerec is not None:
+            return [self._cvat_step(f, self.frame_count + 1 + i)
+                    for i, f in enumerate(frames_rgb)]
         if hasattr(self.detector, "detect_host"):
             # scripted detector: host boxes through the frame step
             if self.native_yuv:
@@ -1196,6 +1281,15 @@ class Pipeline:
         if self._profiler is not None:
             self._stop_profiler()
         self._save_checkpoint()
+        if self.args.output_cvat_dir is not None and self.framerec:
+            print('Writing CVAT output.')
+            os.makedirs(self.args.output_cvat_dir, exist_ok=True)
+            tree = self.framerec.xml_output()
+            outfile = os.path.join(self.args.output_cvat_dir,
+                                   'annotations.xml')
+            with open(outfile, 'wb') as f:
+                tree.write(f, xml_declaration=True, encoding='utf-8',
+                           short_empty_elements=False)
         if self.mqtt:
             if self.args.mqtt_verbosity > 1:
                 payload = {'acp_ts': str(time()), 'acp_event': 'shutdown',

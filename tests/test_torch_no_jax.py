@@ -115,6 +115,9 @@ def test_entry_points_need_cuda_unless_cpu():
         pytest.skip("a card is present: the CUDA defaults are valid here")
     from deepdish_tpu_torch.ops import bgsub
     for call in (lambda: create_detector("ssd_mobilenet"),
+                 lambda: create_detector("yolov5s"),
+                 lambda: create_detector("yolov3"),
+                 lambda: create_detector("efficientdet-lite0"),
                  lambda: bgsub.init_state(8, 8),
                  lambda: create_box_encoder("mars"),
                  lambda: create_box_encoder("dummy"),

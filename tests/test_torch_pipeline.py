@@ -220,8 +220,8 @@ def test_cli_needs_a_card_unless_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--quantized-inference"], ["--detector-int8"],
-    ["--output-cvat-dir", "out"]], ids=["quantized", "int8", "cvat"])
+    ["--quantized-inference"], ["--detector-int8"]],
+    ids=["quantized", "int8"])
 def test_cli_later_slices_raise(tmp_path, argv):
     with pytest.raises(NotImplementedError, match="later slice"):
         asyncio.run(p_amain(["--input", str(tmp_path), "--device", "cpu",
