@@ -78,12 +78,28 @@ and reads JPEGs). Phases, each fatal on failure:
              by the bright-block script on the card and on the CPU (the
              two annotations.xml byte-identical, LSAP launches > 0), then
              the random SSD in bf16 on the card (LSAP launches > 0);
-  9. probe   the ported dsconv probe (deepdish_tpu_torch.tools.probe_dsconv)
+  9. frcnn   Faster R-CNN at full width (FasterRCNNConfig(): ResNet-101
+             C4 at 640, 90 classes, pre_nms_topk 1024, 300 proposals),
+             seeded weights with batch norms calibrated on the walker scene
+             (`_frcnn_donor`): float32 on the card against the CPU port on
+             two resized 720p frames, stage by stage (`_frcnn_card_vs_cpu`:
+             trunk and RPN heads within 1e-3 of their range, the proposal
+             selection on the card's heads with equal valid slots, both
+             second-stage modes on the card's fmap and proposals by
+             `_compare_detections`); the TF-free name-map conversion
+             (TF-OD resnet_v1_101 names -> convert_faster_rcnn_tfod: config
+             (3, 4, 23, 3), card detections identical to the donor's);
+             FrameStep `step` over 16 frames and `run_chunk` over 8 in bf16
+             (ms/frame, host syncs/frame, LSAP launches > 0, the profiler's
+             stage split and idle share); the CLI on the weights as a .npz
+             with a .pbtxt label map at --chunk-size 8 (every frame finite,
+             objd and e2e);
+ 10. probe   the ported dsconv probe (deepdish_tpu_torch.tools.probe_dsconv)
              at full width: batch 32, 6 layers, all 9 stages, 2 rounds of 4;
              the dsconv launch counts are reset before and read after, and
              both strides must have launched;
- 10. report  the `kernels` JSON line (the LSAP's launches: phases 5, 7
-             and 8), the card's name and power limit, and as the last line
+ 11. report  the `kernels` JSON line (the LSAP's launches: phases 5, 7, 8
+             and 9), the card's name and power limit, and as the last line
              {"ok": true, "device": {...}}.
 
 Each phase prints its seconds.
@@ -785,8 +801,6 @@ def phase_dsconv(dev):
             + " / ".join(f"{t:.5f}" for t in widths) + "}")
         if label.startswith(DSCONV_TIMED[s]):
             plain_ms = _time_cuda(lambda: dsconv_plain(*args, s), 5)
-            kernel_ms = min(kernel_ms,
-                            _time_cuda(lambda: dsconv.fused(*args, s), 20))
             t = tally[s]
             entries[s] = {
                 "name": f"dsconv_s{s}", "route": "cuda",
@@ -797,11 +811,15 @@ def phase_dsconv(dev):
                 "max_abs_err": t["max_abs_err"],
                 "max_abs_err_f32": t["max_abs_err_f32"],
                 "max_ulp_bf16": t["max_ulp_bf16"],
-                "ms": kernel_ms, "kernel_ms": kernel_ms,
-                "plain_ms": plain_ms, "library_ms": library_ms,
+                # kernel and cuDNN both by CUDA-graph replay (device
+                # time), the CUDA-event times over eager calls beside them
+                "ms": graphs[0], "events_ms": kernel_ms,
+                "plain_ms": plain_ms, "library_ms": graphs[1],
+                "library_events_ms": library_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by}
-            log(f"[dsconv]   {label}: kernel {kernel_ms:.5f} ms, plain "
-                f"torch {plain_ms:.5f} ms (the timed entry of stride {s})")
+            log(f"[dsconv]   {label}: kernel {graphs[0]:.5f} ms, cuDNN "
+                f"{graphs[1]:.5f} ms (graph replay), plain torch "
+                f"{plain_ms:.5f} ms (the timed entry of stride {s})")
         del args
     return [entries[1], entries[2]]
 
@@ -1012,7 +1030,7 @@ STAGES = ("framestep.upload", "framestep.bgsub", "framestep.resize",
           "framestep.tracker")
 
 
-def profile_step(fs, frames, dev, tag="slice", state=None):
+def profile_step(fs, frames, dev, tag="slice", state=None, stages=STAGES):
     """torch.profiler over plain `step` calls: per frame, each stage's
     host time and device time from the record_function ranges FrameStep
     places around its stages, and the device's busy share (CUDA kernel and
@@ -1030,15 +1048,15 @@ def profile_step(fs, frames, dev, tag="slice", state=None):
         _sync(dev)
         wall_us = (time.perf_counter() - t0) * 1e6
     n = len(frames)
-    host = dict.fromkeys(STAGES, 0.0)
-    device = dict.fromkeys(STAGES, 0.0)
+    host = dict.fromkeys(stages, 0.0)
+    device = dict.fromkeys(stages, 0.0)
     for e in prof.events():
         if e.name in host and e.device_type.name == "CPU":
             host[e.name] += e.cpu_time_total / n / 1e3
             device[e.name] += e.device_time_total / n / 1e3
     log(f"[{tag}] stage split of step (torch.profiler ranges, ms/frame "
         "host / device): " + ", ".join(
-            f"{k} {host[k]:.3f} / {device[k]:.3f}" for k in STAGES))
+            f"{k} {host[k]:.3f} / {device[k]:.3f}" for k in stages))
     kernels = [e for e in prof.key_averages()
                if e.device_type.name == "CUDA" and not e.is_user_annotation]
     busy_us = sum(e.self_device_time_total for e in kernels)
@@ -1852,6 +1870,366 @@ def phase_cvat(dev):
 
 # ---------------------------------------------------------------- phase 9
 
+FRCNN_THRESHOLD = 0.3      # detector and pipeline score threshold
+FRCNN_LOGIT_STD = (3.0, 4.0)   # RPN objectness, second-stage class logits
+FRCNN_STAGES = ("framestep.upload", "framestep.resize", "frcnn.trunk",
+                "frcnn.rpn_nms", "frcnn.crop_block4", "frcnn.second_nms",
+                "framestep.filter_nms", "framestep.crop_mars",
+                "framestep.tracker")
+
+
+def _frcnn_donor(dev):
+    """Full-width Faster R-CNN weights (FasterRCNNConfig(): ResNet-101 C4
+    at 640, 90 classes): flax's default draw from SEED, then, in float32
+    on the card, every batch norm's statistics set to those of its input
+    on two walker frames and two seeded noise images at 640 (as
+    `_family_init` does), and the RPN objectness and class heads scaled so
+    that their logits have the standard deviations FRCNN_LOGIT_STD there
+    (flax's draw alone gives scores that tie to 1e-6 or saturate).
+    Returns the config and the state_dict on the host."""
+    import torch
+    from deepdish_tpu_torch.models import faster_rcnn as fr
+    from deepdish_tpu_torch.models import layers
+    from deepdish_tpu_torch.models.preprocess import resize_bilinear_mxu
+    cfg = fr.FasterRCNNConfig()
+    net = fr.FasterRCNNNet(cfg)
+    layers.flax_default_init_(net, torch.Generator().manual_seed(SEED))
+    net = net.to(dev).eval()
+    net.reset_constants()
+    size = cfg.input_size
+    scene = torch.from_numpy(np.ascontiguousarray(np.stack(
+        [_cli_scene(CLI_START + k)[..., ::-1] for k in (4, 20)]))).to(dev)
+    images = torch.cat([
+        resize_bilinear_mxu(scene, size, size, torch.float32),
+        torch.from_numpy(np.random.RandomState(SEED + 30).randint(
+            0, 256, (2, size, size, 3)).astype(np.float32)).to(dev)])
+
+    def set_stats(bn, args):
+        bn.running_mean.copy_(args[0].mean((0, 2, 3)))
+        bn.running_var.copy_(args[0].var((0, 2, 3), unbiased=False))
+    logits = {}
+
+    def keep(name):
+        def hook(module, args, out):
+            logits[name] = out
+        return hook
+    hooks = [m.register_forward_pre_hook(set_stats) for m in net.modules()
+             if isinstance(m, layers.BatchNorm)]
+    hooks += [net.rpn_cls.register_forward_hook(keep("rpn")),
+              net.cls_head.register_forward_hook(keep("cls"))]
+    try:
+        with torch.no_grad():
+            net(images)
+            # objectness is the difference of the two logits per anchor
+            rpn = logits["rpn"].permute(0, 2, 3, 1).reshape(-1, 2)
+            for layer, spread, target in (
+                    (net.rpn_cls, rpn[:, 1] - rpn[:, 0], FRCNN_LOGIT_STD[0]),
+                    (net.cls_head, logits["cls"], FRCNN_LOGIT_STD[1])):
+                k = target / float(spread.float().std())
+                layer.weight.mul_(k)
+                layer.bias.mul_(k)
+    finally:
+        for h in hooks:
+            h.remove()
+    return cfg, {k: v.cpu() for k, v in net.state_dict().items()}
+
+
+def _tfod_named(flat, cfg):
+    """Flat flax variables of a Faster R-CNN as the TF-OD
+    faster_rcnn_resnet_v1 graph names that convert_faster_rcnn_tfod reads
+    (resnet_v1_<3 * units + 2>)."""
+    rv = f"resnet_v1_{3 * sum(cfg.block_units) + 2}"
+    names = {}
+
+    def put(tf_name, flax_name, bias=False):
+        names[f"{tf_name}/weights"] = flat[f"params/{flax_name}/kernel"]
+        if bias:
+            names[f"{tf_name}/biases"] = flat[f"params/{flax_name}/bias"]
+            return
+        bn = f"{flax_name}_bn"
+        for tfv, key in (("gamma", f"params/{bn}/scale"),
+                         ("beta", f"params/{bn}/bias"),
+                         ("moving_mean", f"batch_stats/{bn}/mean"),
+                         ("moving_variance", f"batch_stats/{bn}/var")):
+            names[f"{tf_name}/BatchNorm/{tfv}"] = flat[key]
+
+    put(f"FirstStageFeatureExtractor/{rv}/conv1", "conv1")
+    for b in range(1, 5):
+        stage = ("FirstStageFeatureExtractor" if b <= 3
+                 else "SecondStageFeatureExtractor")
+        for u in range(1, cfg.block_units[b - 1] + 1):
+            tf_u = f"{stage}/{rv}/block{b}/unit_{u}/bottleneck_v1"
+            for c in ("conv1", "conv2", "conv3", "shortcut"):
+                if f"params/block{b}/unit_{u}/{c}/kernel" in flat:
+                    put(f"{tf_u}/{c}", f"block{b}/unit_{u}/{c}")
+    put("Conv", "rpn_conv", bias=True)
+    put("FirstStageBoxPredictor/BoxEncodingPredictor", "rpn_box", bias=True)
+    put("FirstStageBoxPredictor/ClassPredictor", "rpn_cls", bias=True)
+    put("SecondStageBoxPredictor/BoxEncodingPredictor", "box_head",
+        bias=True)
+    put("SecondStageBoxPredictor/ClassPredictor", "cls_head", bias=True)
+    return names
+
+
+def _frcnn_second_stage(net, fmap, proposals, prop_valid, modes):
+    """The second stage of `net` on the given fmap and proposals, per
+    second-stage mode, as host numpy (boxes, classes, scores, valid)."""
+    import dataclasses
+    base, out = net.cfg, {}
+    for mode in modes:
+        net.cfg = dataclasses.replace(base, second_stage_mode=mode)
+        out[mode] = [x.cpu().numpy() for x in net.second_stage(
+            fmap, proposals, prop_valid)]
+    net.cfg = base
+    return out
+
+
+def _rel_err(a, b):
+    a, b = a.float().cpu(), b.float().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1.0))
+
+
+def _frcnn_card_vs_cpu(card, host, inputs, modes):
+    """Float32 Faster R-CNN on the card against the CPU port, stage by
+    stage: the trunk and the RPN heads from the same images (within 1e-3
+    of their range); the proposal selection on the CPU from the card's heads (the
+    same valid slots, proposals within 1e-5); each second-stage mode on
+    the CPU from the card's fmap and proposals (`_compare_detections`).
+    The selection from each side's own heads is reported, not held: on
+    random weights objectness values of overlapping anchors lie within
+    float32 noise of each other, and greedy NMS keeps either one.
+    Returns (problems, log lines)."""
+    import torch
+    with torch.inference_mode():
+        fmap_c = card.net.trunk(inputs.to(card.device))
+        heads_c = card.net.rpn_heads(fmap_c)
+        props_c = card.net.select_proposals(*heads_c)
+        out_c = _frcnn_second_stage(card.net, fmap_c, *props_c, modes)
+        fmap_p = host.net.trunk(inputs)
+        heads_p = host.net.rpn_heads(fmap_p)
+        own_p = host.net.select_proposals(*heads_p)
+        props_x = host.net.select_proposals(*(h.cpu() for h in heads_c))
+        out_p = _frcnn_second_stage(host.net, fmap_c.cpu(),
+                                    *(p.cpu() for p in props_c), modes)
+    errs = {"fmap": _rel_err(fmap_c, fmap_p),
+            "rpn_box": _rel_err(heads_c[0], heads_p[0]),
+            "rpn_cls": _rel_err(heads_c[1], heads_p[1]),
+            "proposals": float((props_x[0] - props_c[0].cpu()).abs().max())}
+    # ResNet-101's ~100 float32 convolutions summed in other orders by
+    # cuDNN and the CPU: the trunk and heads differ by ~2e-4 of their range
+    # (the families' 60-130 layers: 1e-4), the selection on equal heads by
+    # ulps
+    bounds = {"fmap": 1e-3, "rpn_box": 1e-3, "rpn_cls": 1e-3,
+              "proposals": 1e-5}
+    problems = [f"{k} error {v:.3e}" for k, v in errs.items()
+                if v > bounds[k]]
+    if not torch.equal(props_x[1], props_c[1].cpu()):
+        problems.append("prop_valid differs on the card's heads")
+    own_same = ((own_p[0] - props_c[0].cpu()).abs().amax(-1) < 1e-4)
+    lines = [f"trunk and RPN heads, relative errors {errs['fmap']:.3e} / "
+             f"{errs['rpn_box']:.3e} / {errs['rpn_cls']:.3e} (fmap / box / "
+             f"objectness); selection on the card's heads: prop_valid "
+             f"equal, proposals within {errs['proposals']:.3e}; from each "
+             f"side's own heads {int(own_same.sum())} of "
+             f"{own_same.numel()} proposal slots agree within 1e-4"]
+    for mode in modes:
+        serr = berr = 0.0
+        for i in range(len(inputs)):
+            p, se, be = _compare_detections(
+                *([x[i] for x in o[mode]] for o in (out_c, out_p)))
+            problems += [f"{mode} frame {i}: {m}" for m in p]
+            serr, berr = max(serr, se), max(berr, be)
+        n_valid = [int(v.sum()) for v in out_p[mode][3]]
+        lines.append(f"second stage {mode} on the card's fmap and "
+                     f"proposals: valid {n_valid}, max |score| error "
+                     f"{serr:.3e}, max box error {berr:.3e} (normalised)")
+        if serr > 1e-4 or berr > 1e-4 or min(n_valid) <= 0:
+            problems.append(f"{mode}: errors {serr}, {berr}, valid "
+                            f"{n_valid}")
+    return problems, lines
+
+
+def _frcnn_labels(n):
+    """n class names in id order: COCO's 80, then coco_<id>."""
+    from deepdish_tpu_torch.models import COCO_LABELS
+    return [COCO_LABELS[i] if i < len(COCO_LABELS) else f"coco_{i + 1}"
+            for i in range(n)]
+
+
+def _write_pbtxt(path, names):
+    """A TF-OD label map with 1-based ids."""
+    with open(path, "w") as f:
+        for i, name in enumerate(names):
+            f.write(f'item {{\n  id: {i + 1}\n  name: "{name}"\n}}\n')
+
+
+def phase_frcnn(dev):
+    """Faster R-CNN (ResNet-101 C4 at 640) at full width: float32 card
+    against the CPU port in both second-stage modes; the TF-free name-map
+    conversion at resnet_v1_101 identical on the card; FrameStep `step`
+    and `run_chunk(8)` in bf16 (ms/frame, syncs/frame, LSAP launches, the
+    profiler's stage split); the CLI on a .npz and a .pbtxt at
+    --chunk-size 8. Returns the LSAP launches of the frame-step runs and
+    the CLI."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from deepdish_tpu_torch import device as devmod
+    from deepdish_tpu_torch.kernels import lsap
+    from deepdish_tpu_torch.models import convert as cvm
+    from deepdish_tpu_torch.models import weights as wm
+    from deepdish_tpu_torch.models.faster_rcnn import (FasterRCNNDetector,
+                                                       FasterRCNNNet)
+    from deepdish_tpu_torch.pipeline import FrameStepConfig
+
+    t0 = time.perf_counter()
+    cfg, sd = _frcnn_donor(dev)
+    log(f"[frcnn] ResNet-v1 C4 {cfg.block_units} at {cfg.input_size}, "
+        f"widths {cfg.block_features}, {cfg.num_classes} "
+        f"classes, pre_nms_topk {cfg.pre_nms_topk}, {cfg.max_proposals} "
+        f"proposals; seeded weights with batch norms calibrated on the "
+        f"card in {time.perf_counter() - t0:.1f} s")
+    frames_rgb = np.ascontiguousarray(np.stack(
+        [_cli_scene(i) for i in range(CLI_FRAMES)])[..., ::-1])
+    shape = (FRAME_H, FRAME_W)
+    step_cfg = FrameStepConfig(score_threshold=FRCNN_THRESHOLD)
+    cpu = torch.device("cpu")
+    modes = ("argmax", "per_class")
+    names = _frcnn_labels(cfg.num_classes)
+
+    # 1. float32, card against the CPU port, two resized walker frames
+    t1 = time.perf_counter()
+    card = FasterRCNNDetector(state_dict=sd, config=cfg, device=dev,
+                              compute_dtype=torch.float32,
+                              score_threshold=FRCNN_THRESHOLD)
+    card.labels = dict(enumerate(names))
+    fs = _framestep(dev, shape, step_cfg=step_cfg, detector=card)
+    inputs = fs.detector_input(torch.from_numpy(
+        frames_rgb[CLI_START + 6::12][:2]).to(dev)).cpu()
+    del fs
+    host = FasterRCNNDetector(state_dict=sd, config=cfg, device=cpu,
+                              compute_dtype=torch.float32,
+                              score_threshold=FRCNN_THRESHOLD)
+    problems, lines = _frcnn_card_vs_cpu(card, host, inputs, modes)
+    del host
+    for line in lines:
+        log(f"[frcnn] float32 card vs CPU, {len(inputs)} resized 720p "
+            f"frames: {line}")
+    log(f"[frcnn] float32 card vs CPU: {len(problems)} problems "
+        f"({time.perf_counter() - t1:.1f} s)")
+    if problems:
+        raise SystemExit(f"frcnn: float32 card vs CPU: {problems[:6]}")
+
+    # 2. the TF-free name-map conversion at full width
+    t1 = time.perf_counter()
+    flat = wm.faster_rcnn_to_flax(card.net)
+    tensors = _tfod_named(flat, cfg)
+    conv, rep = cvm.convert_faster_rcnn_tfod(tensors,
+                                             input_size=cfg.input_size)
+    if rep["missing"] or rep["unused"] or \
+            rep["config"].block_units != (3, 4, 23, 3):
+        raise SystemExit(f"frcnn: conversion report {rep}")
+    conv_det = FasterRCNNDetector(state_dict=wm.faster_rcnn_from_flax(conv),
+                                  config=rep["config"], device=dev,
+                                  compute_dtype=torch.float32,
+                                  score_threshold=FRCNN_THRESHOLD)
+    with torch.inference_mode():
+        got = conv_det.net(inputs.to(dev))
+        want = card.net(inputs.to(dev))
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    log(f"[frcnn] TF-OD names (resnet_v1_101, {len(tensors)} tensors) -> "
+        f"convert_faster_rcnn_tfod: config {rep['config'].block_units}, "
+        f"{rep['assigned']} assigned; card detections identical to the "
+        f"donor's: {same} ({time.perf_counter() - t1:.1f} s)")
+    if not same:
+        raise SystemExit("frcnn: the converted detector differs on the card")
+    del card, conv_det, conv, tensors
+
+    # 3. bf16 FrameStep: step over 16 frames, run_chunk over 8
+    det = FasterRCNNDetector(state_dict=sd, config=cfg, device=dev,
+                             score_threshold=FRCNN_THRESHOLD)
+    det.labels = dict(enumerate(names))
+    fs = _framestep(dev, shape, step_cfg=step_cfg, detector=det)
+    seq = frames_rgb[CLI_START:CLI_START + 16]
+    chunk = frames_rgb[CLI_START + 16:CLI_START + 24]
+    state = fs.init_state()
+    for f in frames_rgb[CLI_START - 2:CLI_START]:          # warm-up
+        state, out, snap, _ = fs.step(state, f)
+    fs.run_chunk(fs.init_state(), chunk)
+    _sync(dev)
+    lsap.launches = 0
+    devmod.host_syncs = 0
+    dets = []
+    t1 = time.perf_counter()
+    for f in seq:
+        state, out, snap, _ = fs.step(state, f)
+        dets.append(snap.valid.sum())
+    _sync(dev)
+    step_ms = (time.perf_counter() - t1) / len(seq) * 1e3
+    step_syncs = devmod.host_syncs / len(seq)
+    step_launches = lsap.launches
+    _check_outputs(out, snap, 64, 32)
+    devmod.host_syncs = 0
+    t1 = time.perf_counter()
+    state, couts, csnaps = fs.run_chunk(state, chunk)
+    _sync(dev)
+    chunk_ms = (time.perf_counter() - t1) / len(chunk) * 1e3
+    chunk_syncs = devmod.host_syncs / len(chunk)
+    _check_outputs(couts, csnaps, 64, 32)
+    launches = lsap.launches
+    peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if dev.type == "cuda" else float("nan"))
+    log(f"[frcnn] bf16 FrameStep 720p (input {det.width}x{det.height}, "
+        f"score threshold {FRCNN_THRESHOLD}, bgsub off): step "
+        f"{step_ms:.3f} ms/frame, {step_syncs:.2f} host syncs/frame, "
+        f"detections/frame {[int(d) for d in dets]}; run_chunk(8) "
+        f"{chunk_ms:.3f} ms/frame, {chunk_syncs:.2f} host syncs/frame; "
+        f"LSAP launches {step_launches} in step, "
+        f"{launches - step_launches} in run_chunk; peak device memory "
+        f"{peak:.2f} GiB")
+    if launches <= 0:
+        raise SystemExit("frcnn: the LSAP kernel never launched")
+    profile_step(fs, seq[:8], dev, tag="frcnn", state=state,
+                 stages=FRCNN_STAGES)
+    del fs, det, state, couts, csnaps
+
+    # 4. the CLI on a .npz of the weights and a .pbtxt, --chunk-size 8
+    lsap.launches = 0
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = f"{tmp}/faster_rcnn_resnet101.npz"
+        np.savez(npz, **flat)
+        _write_pbtxt(f"{tmp}/map.pbtxt", names)
+        pipe, timing, n, bad = _run_cli(
+            ["--input", "synthetic://walkers", "--disable-graphics",
+             "--streaming", "0", "--control-port", "0",
+             "--model", npz, "--labels", f"{tmp}/map.pbtxt",
+             "--wanted-labels", ",".join(names), "--device", dev.type,
+             "--score-threshold", str(FRCNN_THRESHOLD),
+             "--chunk-size", "8", "--log", f"{tmp}/frcnn.log"], CLI_FRAMES)
+    cli_launches = lsap.launches
+    det = pipe.framestep.detector
+    skip = 8
+    counters = {k: v for k, v in
+                pipe.counting.counters_payload().items() if v}
+    log(f"[frcnn] CLI 720p --model faster_rcnn_resnet101.npz --labels "
+        f"map.pbtxt --chunk-size 8 ({det.compute_dtype}, bgsub on, labels "
+        f"{det.labels[0]!r}..{det.labels[cfg.num_classes - 1]!r}): {n} "
+        f"frames in {time.perf_counter() - t1:.1f} s, objd "
+        f"{float(np.mean(timing['objd'][skip:])):.3f} ms/frame, e2e "
+        f"{float(np.mean(timing['e2e'][skip:])):.3f} ms/frame (mean over "
+        f"frames {skip + 1}-{n}), {cli_launches} LSAP launches, {bad} "
+        f"frames with non-finite outputs; nonzero counters {counters}; "
+        f"phase {time.perf_counter() - t0:.1f} s")
+    if n != CLI_FRAMES or bad or not isinstance(det.net, FasterRCNNNet):
+        raise SystemExit(f"frcnn: CLI saw {n} frames, {bad} non-finite")
+    del pipe, det
+    return launches + cli_launches
+
+
+# ---------------------------------------------------------------- phase 10
+
 def phase_probe(dev):
     """The ported probe at full width through its entry point; returns the
     dsconv launches by stride, counted from 0 over this run only."""
@@ -1918,9 +2296,11 @@ def main() -> int:
     timed("reference", phase_reference, dev)
     entry["launches"], _ = timed("slice", phase_slice, dev)
     timed("cli", phase_cli, dev)
-    # the LSAP launches of the main path: the slice and both new paths
+    # the LSAP launches of the main path: the slice, the families, CVAT
+    # and Faster R-CNN
     entry["launches"] += timed("families", phase_families, dev)
     entry["launches"] += timed("cvat", phase_cvat, dev)
+    entry["launches"] += timed("frcnn", phase_frcnn, dev)
     by_stride = timed("probe", phase_probe, dev)
     for e, s in zip(ds_entries, (1, 2)):
         e["launches"] = by_stride[s]

@@ -16,7 +16,8 @@ max_results. The input is normalized with the model metadata's mean and std
 Padding follows flax's "SAME": the stride-2 convolutions pad
 asymmetrically (`layers.SameConv2d`), and the BiFPN's 3x3 stride-2 max pool
 pads with -inf the same way (10 -> 5 pads (0, 1)), which
-`F.max_pool2d(padding=...)` cannot express, so `_down2` pads explicitly.
+`F.max_pool2d(padding=...)` cannot express, so `_down2` pads explicitly
+(`layers.max_pool_same`).
 The network runs NCHW inside and permutes its heads to NHWC before the
 (-1, 4) / (-1, nc) reshape, so anchors keep the JAX package's order. Module
 names follow the flax ones, which is what the weight bridge
@@ -29,14 +30,13 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
 
 from ..device import resolve_device
 from ..ops import nms as nmsops
 from ..ops.onehot import gather_rows, stable_argsort, topk_desc
-from .layers import BatchNorm, SameConv2d, flax_default_init_, same_pad
+from .layers import BatchNorm, SameConv2d, flax_default_init_, max_pool_same
 from .preprocess import default_compute_dtype
 
 INPUT_SIZE = 320
@@ -129,11 +129,8 @@ class _SepConvBN(nn.Module):
 
 
 def _down2(x):
-    """3x3 stride-2 max pool with flax's SAME padding (-inf, asymmetric)."""
-    ph = same_pad(x.shape[-2], 2, 3)
-    pw = same_pad(x.shape[-1], 2, 3)
-    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
-    return F.max_pool2d(x, 3, 2)
+    """3x3 stride-2 max pool with flax's SAME padding."""
+    return max_pool_same(x, 3, 2)
 
 
 def _up_to(x, like):

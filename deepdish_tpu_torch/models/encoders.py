@@ -102,18 +102,29 @@ def make_mars_encoder(state_dict=None,
 def create_box_encoder(model_name: str, state_dict=None, device=None,
                        **kw) -> EncoderSpec:
     """Filename-substring dispatch (generate_detections.py:180-189):
-    'dummy', 'constant', else MARS. A MARS weight file must be a flat .npz
-    of the JAX package's variables (models/weights.py); other artifact
-    formats are converted to .npz with the JAX package first."""
+    'dummy', 'constant', else MARS. MARS weights load from a flat .npz of
+    the JAX package's variables (models/weights.py), a frozen .pb or a TF
+    checkpoint (name map, models/convert.py `load_mars`; these need
+    tensorflow); a .tflite raises until the structural conversion is
+    ported. A name that is no file gives random weights, as in the JAX
+    package."""
     name = model_name or ""
     if "dummy" in name:
         return make_dummy_encoder(device)
     if "constant" in name:
         return make_constant_encoder(device)
-    if state_dict is None and name and os.path.exists(name):
-        if not name.endswith(".npz"):
+    if state_dict is None and name:
+        from . import weights as w
+        is_ckpt = ".ckpt" in name and (os.path.exists(name + ".index")
+                                       or name.endswith(".index"))
+        if name.endswith(".npz") and os.path.exists(name):
+            state_dict = w.mars_from_flax(w._flatten(w.load_npz(name)))
+        elif is_ckpt or (os.path.exists(name)
+                         and name.endswith((".pb", ".tflite"))):
+            from .convert import load_mars
+            state_dict = w.mars_from_flax(load_mars(name)[0])
+        elif os.path.exists(name):
             raise ValueError(f"{name}: the port loads MARS weights from a "
-                             ".npz of the JAX package's variables")
-        from .weights import _flatten, load_npz, mars_from_flax
-        state_dict = mars_from_flax(_flatten(load_npz(name)))
+                             ".npz of the JAX package's variables, a frozen "
+                             ".pb or a TF checkpoint")
     return make_mars_encoder(state_dict=state_dict, device=device, **kw)

@@ -4,7 +4,9 @@ batch norm as flax computes it, and flax-default random initialisation.
 Flax pads "SAME" asymmetrically at stride 2 (300 -> 150 pads (0, 1),
 75 -> 38 pads (1, 1)), which `nn.Conv2d(padding=...)` cannot express, so
 `SameConv2d` pads explicitly per call (`same_pad`, the helper of
-deepdish_tpu/ops/dsconv_pallas.py:47).
+deepdish_tpu/ops/dsconv_pallas.py:47), and `max_pool_same` pads with -inf
+(flax's `nn.max_pool(padding="SAME")`, the EfficientDet BiFPN's and the
+Faster R-CNN stem's pool).
 """
 from __future__ import annotations
 
@@ -37,6 +39,15 @@ class SameConv2d(nn.Conv2d):
         if any(ph) or any(pw):
             x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
         return super().forward(x)
+
+
+def max_pool_same(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """NCHW max pool with flax's SAME padding (-inf, asymmetric)."""
+    ph = same_pad(x.shape[-2], stride, kernel)
+    pw = same_pad(x.shape[-1], stride, kernel)
+    if any(ph) or any(pw):
+        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
+    return F.max_pool2d(x, kernel, stride)
 
 
 class BatchNorm(nn.Module):

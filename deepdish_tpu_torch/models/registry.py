@@ -3,13 +3,17 @@
 
 The reference picks its detector backend by model-filename substring
 (deepdish.py:482-502). As in the JAX package, 'scripted:<name>' gives a
-weightless host-scripted detector, then 'yolov5' YOLOv5s, 'yolo' YOLOv3,
-'efficientdet' (or a non-SSD '.tflite' name) EfficientDet-Lite0, and
-'ssd' / 'mobilenet' / 'edgetpu' SSD-MobileNetV1. Weights come from a flat
-.npz of the JAX package's variables or random init. Still to be ported,
-and raising here: Faster R-CNN and SavedModel directories, the quantized
-paths (--quantized-inference, --detector-int8), and the conversion of
-.tflite, .h5 and .pb files (convert them to .npz with the JAX package).
+weightless host-scripted detector; a directory named '*saved_model*' a
+TF-OD SSD or Faster R-CNN converted from its variables (models/convert.py),
+else the host SavedModel executor; then 'faster_rcnn' / 'frcnn' Faster
+R-CNN, 'yolov5' YOLOv5s, 'yolo' YOLOv3, 'efficientdet' (or a non-SSD
+'.tflite' name) EfficientDet-Lite0, and 'ssd' / 'mobilenet' / 'edgetpu'
+SSD-MobileNetV1. Weights come from a SavedModel directory, a flat .npz of
+the JAX package's variables, or random init; `.pbtxt` label maps give
+1-based ids. Still to be ported, and raising here: the structural
+conversion of .tflite and .h5 files (the next slice, ROADMAP.md §1 item 2;
+convert them to .npz with the JAX package meanwhile) and the quantized
+paths (--quantized-inference, --detector-int8).
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from .efficientdet import EfficientDetLite0Detector
+from .faster_rcnn import FasterRCNNDetector
 from .ssd_mobilenet import SSDMobileNetDetector
 from .yolov3 import YOLOv3Detector
 from .yolov5 import YOLOv5Detector
@@ -52,11 +57,15 @@ def load_labels(label_file: Optional[str]) -> Sequence[str]:
 
 
 def _detection_labels(label_file: Optional[str]):
-    """Label dict for 0-based background-stripped class ids from a plain
-    text file (one name per line), or COCO's."""
-    if label_file and label_file.endswith(".pbtxt"):
-        raise NotImplementedError(f".pbtxt label maps ({label_file}) "
-                                  f"{_LATER}, with models/labelmap.py")
+    """Label dict for 0-based background-stripped class ids. A .pbtxt
+    label map (the SavedModel family's, tools/saved_model.py:70-103) has
+    1-based ids, shifted to the 0-based contract; a plain text file is one
+    name per line; default COCO's."""
+    if label_file and label_file.endswith(".pbtxt") \
+            and os.path.exists(label_file):
+        from .labelmap import load_pbtxt_labelmap
+        return {i - 1: n for i, n in
+                load_pbtxt_labelmap(label_file).items()}
     return dict(enumerate(load_labels(label_file)))
 
 
@@ -129,6 +138,8 @@ class ScriptedDetector:
 
 def _family(name: str) -> str:
     """The weight family a model name selects (the JAX package's order)."""
+    if "faster_rcnn" in name or "frcnn" in name:
+        return "faster_rcnn"
     if "yolov5" in name:
         return "yolov5"
     if "yolo" in name:
@@ -152,17 +163,59 @@ def _load_npz_weights(model_name: str, family: str,
         from . import weights as w
         bridge = {"yolov5": w.yolov5_from_flax, "yolov3": w.yolov3_from_flax,
                   "efficientdet": w.efficientdet_from_flax,
+                  "faster_rcnn": w.faster_rcnn_from_flax,
                   "ssd": w.ssd_from_flax}[family]
         return bridge(w._flatten(w.load_npz(model_name)))
     if not allow_random_weights:
         raise ValueError(
-            f"{model_name}: the port loads {family} weights from a .npz of "
-            "the JAX package's variables only; converting .tflite, .h5 and "
-            f".pb files {_LATER} (convert with the JAX package first); pass "
-            "--allow-random-weights to run without pre-trained weights")
+            f"{model_name}: the port loads {family} weight files from a "
+            ".npz of the JAX package's variables (and TF-OD exports from a "
+            "SavedModel directory); converting .tflite and .h5 files "
+            f"{_LATER} (item 2's structural half; convert with the JAX "
+            "package first); pass --allow-random-weights to run without "
+            "pre-trained weights")
     print(f"{model_name} not recognized as a weight artifact; "
           "running with random-init weights")
     return None
+
+
+def _saved_model_detector(model_dir, wanted_labels, label_file,
+                          score_threshold, max_outputs, device, **kw):
+    """A SavedModel directory (deepdish.py:489): a TF-OD SSD or
+    faster_rcnn_resnet_v1 export converts through its variables checkpoint
+    to the port's detector (Faster R-CNN with the checkpoint's config);
+    anything else runs on the host SavedModel executor, which feeds the
+    frame step like a scripted detector (tools/saved_model.py:9-103).
+    Without tensorflow this raises ImportError, never random weights."""
+    from . import convert as cvm
+    common = dict(max_outputs=max_outputs, score_threshold=score_threshold,
+                  device=device, **kw)
+    try:
+        flat, _rep = cvm.load_ssd_saved_model(model_dir)
+    except ImportError:
+        raise
+    except Exception as ssd_err:
+        try:
+            flat, rep = cvm.load_faster_rcnn_saved_model(model_dir)
+        except Exception as e:
+            print(f"SavedModel dir is neither a TF-OD SSD export "
+                  f"({ssd_err}) nor a faster_rcnn_resnet_v1 export ({e}); "
+                  "using the host SavedModel executor")
+            from .saved_model import SavedModelDetector
+            return SavedModelDetector(model_dir, label_file=label_file,
+                                      wanted_labels=wanted_labels,
+                                      score_threshold=score_threshold)
+        from .weights import faster_rcnn_from_flax
+        det = FasterRCNNDetector(state_dict=faster_rcnn_from_flax(flat),
+                                 config=rep["config"], **common)
+        det.labels = _detection_labels(label_file)
+        det.label_offset = 0
+        return det
+    from .weights import ssd_from_flax
+    det = SSDMobileNetDetector(state_dict=ssd_from_flax(flat), **common)
+    det.labels = dict(enumerate(load_labels(label_file)))
+    det.label_offset = 0
+    return det
 
 
 def create_detector(model_name: str = "ssd_mobilenet", wanted_labels=None,
@@ -173,17 +226,18 @@ def create_detector(model_name: str = "ssd_mobilenet", wanted_labels=None,
                     calib_images=None, label_allow=None, label_deny=None,
                     max_results: int = -1, device=None, **kw):
     """Substring dispatch like deepdish.py:482-502, with the JAX package's
-    keywords and order: 'scripted:<name>' gives a ScriptedDetector; then
-    'yolov5', 'yolo', 'efficientdet' (or a non-SSD '.tflite' name) and
-    'ssd' / 'mobilenet' / 'edgetpu' give that family's detector on `device`
+    keywords and order: 'scripted:<name>' gives a ScriptedDetector; a
+    '*saved_model*' directory a converted TF-OD SSD or Faster R-CNN, else
+    the host SavedModel executor; then 'faster_rcnn' / 'frcnn', 'yolov5',
+    'yolo', 'efficientdet' (or a non-SSD '.tflite' name) and 'ssd' /
+    'mobilenet' / 'edgetpu' give that family's detector on `device`
     (default CUDA), with weights from `state_dict`, a flat .npz of the JAX
     package's variables named by `model_name`, or random init (`generator`
     and `compute_dtype` in **kw). A weight file that is not such an .npz
     raises unless `allow_random_weights`. `label_allow`, `label_deny` and
     `max_results` configure EfficientDet's result filter; `calib_images`
-    belongs to the int8 SSD, which is not ported yet. Faster R-CNN,
-    SavedModel directories and the quantized paths raise
-    NotImplementedError."""
+    belongs to the int8 SSD, which is not ported yet. The quantized paths
+    raise NotImplementedError."""
     del calib_images
     name = (model_name or "ssd_mobilenet").lower()
     if "scripted" in name:
@@ -200,24 +254,30 @@ def create_detector(model_name: str = "ssd_mobilenet", wanted_labels=None,
     is_file = bool(model_name) and os.path.isfile(model_name)
     if model_name and os.path.isdir(model_name):
         if "saved_model" in name:
-            raise NotImplementedError(
-                f"{model_name}: SavedModel directories {_LATER}, with "
-                "models/convert.py and models/faster_rcnn.py")
+            return _saved_model_detector(
+                model_name, wanted_labels=wanted_labels,
+                label_file=label_file, score_threshold=score_threshold,
+                max_outputs=max_outputs, device=device, **kw)
         if not allow_random_weights:
             raise ValueError(
                 f"{model_name} is a directory; SavedModel directories are "
                 "selected by the 'saved_model' substring (deepdish.py:489) "
                 "- rename the path or pass --allow-random-weights to run "
                 "without pre-trained weights.")
-    if "faster_rcnn" in name or "frcnn" in name:
-        raise NotImplementedError(f"Faster R-CNN ({model_name}) {_LATER}, "
-                                  "with models/faster_rcnn.py")
     family = _family(name)
     if state_dict is None and is_file:
         state_dict = _load_npz_weights(model_name, family,
                                        allow_random_weights)
     common = dict(state_dict=state_dict, max_outputs=max_outputs,
                   device=device, **kw)
+    if family == "faster_rcnn":
+        # the reference's SavedModel default family (tools/saved_model.py)
+        # at the zoo configuration; weights from a .npz of the JAX
+        # package's variables or random init
+        det = FasterRCNNDetector(score_threshold=score_threshold, **common)
+        det.labels = _detection_labels(label_file)
+        det.label_offset = 0
+        return det
     if family == "yolov5":
         det = YOLOv5Detector(score_threshold=max(score_threshold, 0.25),
                              **common)

@@ -1,6 +1,6 @@
 """Greedy non-max suppression with the reference's pick order, batched.
 
-Port of deepdish_tpu/ops/nms.py (`_greedy` :29, `nms_tlwh` :91,
+Port of deepdish_tpu/ops/nms.py (`_greedy` :29-30, `nms_tlwh` :91,
 `nms_xyxy_per_class` :109). Greedy NMS keeps box j iff no kept box earlier
 in pick order suppresses it. In pick-rank space the suppression matrix is
 strictly upper triangular, so the keep mask is the unique fixpoint of
@@ -17,20 +17,24 @@ import torch
 
 from .. import device as devmod
 from . import boxes as boxops
-from .onehot import argsort_desc_tie_high, stable_argsort
+from .onehot import (argsort_desc_tie_high, argsort_desc_tie_low,
+                     stable_argsort)
 
 
 def _greedy(overlap: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
-            max_overlap: float):
+            max_overlap: float, tie_high: bool = True):
     """overlap[..., i, j]: suppression metric of candidate j against picked
     box i. Pick order is score descending with ties to the higher index
-    (the reference NMS's pick-from-the-end of an ascending argsort).
+    (the reference NMS's pick-from-the-end of an ascending argsort), or
+    with `tie_high=False` to the lower index (tf.image.non_max_suppression,
+    the Faster R-CNN stages' order).
 
     Returns (order, keep): order (..., K) int32 original indices of the kept
     boxes in pick order, -1 past the last; keep (..., K) bool."""
     k = scores.shape[-1]
     dev = scores.device
-    rank = argsort_desc_tie_high(scores)
+    rank = (argsort_desc_tie_high(scores) if tie_high
+            else argsort_desc_tie_low(scores))
     valid_r = valid.gather(-1, rank)
     rows = overlap.gather(-2, rank[..., :, None].expand(overlap.shape))
     s = rows.gather(-1, rank[..., None, :].expand(overlap.shape)) > max_overlap

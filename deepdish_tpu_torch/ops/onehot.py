@@ -13,7 +13,10 @@ and the order of the assignment problem's rows:
     unspecified;
   * `argsort_desc_tie_high`: descending, ties to the HIGHER index, the
     reference NMS pick order (onehot.py:91) — the reverse of the stable
-    ascending order.
+    ascending order;
+  * `argsort_desc_tie_low`: descending, ties to the LOWER index, the
+    tf.image.non_max_suppression pick order of the Faster R-CNN stages
+    (onehot.py:104) — a stable descending sort.
 
 All functions act on the last dimension and accept leading batch dims.
 Float keys must not hold -0.0 next to +0.0 or NaN: the CUDA radix sort
@@ -43,6 +46,11 @@ def topk_desc(scores: torch.Tensor, k: int):
 def argsort_desc_tie_high(scores: torch.Tensor) -> torch.Tensor:
     """Descending argsort, ties broken by HIGHER index first."""
     return torch.flip(stable_argsort(scores), dims=(-1,))
+
+
+def argsort_desc_tie_low(scores: torch.Tensor) -> torch.Tensor:
+    """Descending argsort, ties broken by LOWER index first."""
+    return torch.sort(scores, dim=-1, descending=True, stable=True).indices
 
 
 def gather_rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -96,16 +96,19 @@ class MBox:
             self.message = message
 
 
-def capthread_f(cap, kickstart, box, everyframe, interframe_interval, simcam):
+def capthread_f(cap, kickstart, box, everyframe, interframe_interval, simcam,
+                stop):
     """Blocking capture loop in its own thread (deepdish.py:95-129),
-    including the adaptive inter-frame delay."""
+    including the adaptive inter-frame delay, until EOF or `stop`. This
+    thread alone releases `cap`: a VideoCapture released from another
+    thread while this one is inside `cap.read()` can deadlock both."""
     count = 0
     delay = interframe_interval
     try:
         kickstart.wait()
         prev_t = time()
         ret = True
-        while ret:
+        while ret and not stop.is_set():
             t1 = time()
             ret, frame = cap.read()
             if not ret:
@@ -712,8 +715,12 @@ class Pipeline:
                 if self.powersave_delay > 0:
                     await asyncio.sleep(self.powersave_delay)
         finally:
-            if self.cap is not None:
-                self.cap.release()
+            # the capture thread releases the capture once it sees the stop
+            # (a release from here can deadlock against its cap.read())
+            self._capstop.set()
+            self.kickstart.set()
+            if self.everyframe is not None:
+                self.everyframe.set()
 
     async def capture_native(self, q):
         """Offline capture via the native loader: chunks of I420 frames, no
@@ -1250,10 +1257,11 @@ class Pipeline:
                 ifi_sec = float(ifi) / 1000.0
             else:
                 ifi_sec = None
+            self._capstop = threading.Event()
             capthread = threading.Thread(
                 target=capthread_f,
                 args=(self.cap, self.kickstart, box, self.everyframe,
-                      ifi_sec, self.simcam), daemon=True)
+                      ifi_sec, self.simcam, self._capstop), daemon=True)
             capthread.start()
         if self.process:
             self.process.cpu_percent()

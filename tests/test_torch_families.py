@@ -338,7 +338,8 @@ def test_registry_dispatch(tmp_path, monkeypatch, pairs):
     """Names select families in the JAX package's order, keywords pass
     through, and what is not ported yet raises."""
     for cls in ("YOLOv5Detector", "YOLOv3Detector",
-                "EfficientDetLite0Detector", "SSDMobileNetDetector"):
+                "EfficientDetLite0Detector", "SSDMobileNetDetector",
+                "FasterRCNNDetector"):
         monkeypatch.setattr(p_registry, cls, type(cls, (_Stub,), {}))
 
     def create(name, **kw):
@@ -360,9 +361,12 @@ def test_registry_dispatch(tmp_path, monkeypatch, pairs):
         ed.kw["label_deny"] == ["car"] and ed.kw["max_results"] == 5
     assert ed.finalized and ed.labels[0] == "person" and \
         ed.kw["score_threshold"] == 0.4
-    for name in ("faster_rcnn_resnet101", "ssd_mobilenet_int8"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            create(name)
+    for name in ("faster_rcnn_resnet101", "frcnn", "yolov5_frcnn"):
+        assert create(name)[0] == "FasterRCNNDetector"
+    assert create("faster_rcnn", score_threshold=0.4)[1].kw[
+        "score_threshold"] == 0.4
+    with pytest.raises(NotImplementedError, match="later slice"):
+        create("ssd_mobilenet_int8")
     with pytest.raises(ValueError, match="backend"):
         create("resnet50")
     for fname in ("yolov5s.tflite", "yolo.h5", "ssd_frozen.pb"):

@@ -1,8 +1,9 @@
 """The port stands alone: deepdish_tpu_torch and chip_smoke.py import no
 jax, no flax and nothing of deepdish_tpu, its entry points need a card
-unless the caller asks for the CPU, and the CLI's modules import cv2 and
-PIL only inside the functions that need them (the card's machine has
-neither)."""
+unless the caller asks for the CPU, the CLI's modules import cv2 and PIL
+only inside the functions that need them (the card's machine has
+neither), and no module imports tensorflow or h5py outside a function (the
+weight readers need them only for the files they read)."""
 import ast
 import os
 import subprocess
@@ -81,6 +82,27 @@ def test_no_top_level_cv2_or_pil(path):
     assert not bad, f"{path} imports {bad} at module level"
 
 
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_tensorflow_and_h5py_only_inside_functions(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    inside = set()
+    for fn in ast.walk(tree):
+        if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            inside.update(id(n) for n in ast.walk(fn))
+    bad = []
+    for node in ast.walk(tree):
+        if id(node) in inside:
+            continue
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            bad.append(node.module or "")
+    bad = [m for m in bad if m.split(".")[0] in ("tensorflow", "h5py")]
+    assert not bad, f"{path} imports {bad} outside a function"
+
+
 def test_import_pulls_no_jax():
     code = ("import sys, deepdish_tpu_torch.pipeline, "
             "deepdish_tpu_torch.models, deepdish_tpu_torch.kernels.lsap, "
@@ -90,9 +112,13 @@ def test_import_pulls_no_jax():
             "deepdish_tpu_torch.ops.bgsub, deepdish_tpu_torch.ops.colorspace, "
             "deepdish_tpu_torch.utils.native, "
             "deepdish_tpu_torch.kernels.dsconv, deepdish_tpu_torch.ops.dsconv, "
-            "deepdish_tpu_torch.tools.probe_dsconv\n"
+            "deepdish_tpu_torch.tools.probe_dsconv, "
+            "deepdish_tpu_torch.models.convert, "
+            "deepdish_tpu_torch.models.saved_model, "
+            "deepdish_tpu_torch.models.faster_rcnn\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'deepdish_tpu', 'cv2', 'PIL')]\n"
+            "('jax', 'flax', 'deepdish_tpu', 'cv2', 'PIL', 'tensorflow', "
+            "'h5py')]\n"
             "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -118,6 +144,7 @@ def test_entry_points_need_cuda_unless_cpu():
                  lambda: create_detector("yolov5s"),
                  lambda: create_detector("yolov3"),
                  lambda: create_detector("efficientdet-lite0"),
+                 lambda: create_detector("faster_rcnn"),
                  lambda: bgsub.init_state(8, 8),
                  lambda: create_box_encoder("mars"),
                  lambda: create_box_encoder("dummy"),

@@ -199,6 +199,68 @@ def test_cli_restore_from_log(tmp_path):
     assert lines[-1]["delcount_person"] == 1
 
 
+class _WatchedCapture:
+    """cv2.VideoCapture's interface over blank frames that records which
+    thread releases it and whether a release overlaps a read."""
+
+    def __init__(self, n_frames):
+        import threading
+        self.n, self.i = n_frames, 0
+        self.reading = 0
+        self.overlap = False
+        self.released_by = []
+        self.released = threading.Event()
+
+    def read(self):
+        import time
+        self.reading += 1
+        time.sleep(0.002)
+        self.reading -= 1
+        if self.i >= self.n:
+            return False, None
+        self.i += 1
+        return True, np.zeros((48, 64, 3), np.uint8)
+
+    def get(self, prop):
+        return {p_runtime.CAP_PROP_FRAME_WIDTH: 64,
+                p_runtime.CAP_PROP_FRAME_HEIGHT: 48,
+                p_runtime.CAP_PROP_FPS: 15.0}.get(prop, 0)
+
+    def set(self, prop, value):
+        return True
+
+    def release(self):
+        import threading
+        self.overlap |= self.reading > 0
+        self.released_by.append(threading.current_thread()
+                                is threading.main_thread())
+        self.released.set()
+
+
+def test_cli_capture_released_by_its_thread(monkeypatch, tmp_path):
+    """A run stopped by --max-frames leaves the capture to the capture
+    thread, which releases it once, never during its own read: a release
+    from the event loop while that thread is in cap.read() can deadlock
+    inside OpenCV."""
+    from deepdish_tpu_torch.pipeline import main as p_main
+    caps = []
+
+    class WatchedPipeline(p_runtime.Pipeline):
+        def _open_capture(self, source):
+            caps.append(_WatchedCapture(40))
+            return caps[-1]
+
+    monkeypatch.setattr(p_main, "Pipeline", WatchedPipeline)
+    asyncio.run(p_amain(["--input", "synthetic://blank", "--max-frames",
+                         "3", "--model", "scripted:noop", "--encoder-model",
+                         "dummy", "--device", "cpu", "--disable-graphics",
+                         "--streaming", "0", "--control-port", "0",
+                         "--log", str(tmp_path / "run.log")]))
+    cap, = caps
+    assert cap.released.wait(10)
+    assert cap.released_by == [False] and not cap.overlap
+
+
 def test_cli_missing_input_raises(tmp_path):
     with pytest.raises(FileNotFoundError, match="--input"):
         asyncio.run(p_amain(["--input", str(tmp_path / "nope.mp4"),
@@ -344,8 +406,15 @@ def test_label_files(tmp_path):
         ["person", "car", "bus"]
     assert load_labels(None) == j_load(None)
     assert _detection_labels(str(path)) == {0: "person", 1: "car", 2: "bus"}
-    with pytest.raises(NotImplementedError, match="pbtxt"):
-        _detection_labels(str(tmp_path / "map.pbtxt"))
+    # a .pbtxt label map: 1-based ids shifted to the 0-based contract
+    from deepdish_tpu.models.registry import _detection_labels as j_labels
+    pbtxt = tmp_path / "map.pbtxt"
+    pbtxt.write_text('item {\n  id: 1\n  name: "person"\n}\n'
+                     'item { id: 3 name: "x" display_name: "dog" }\n')
+    assert _detection_labels(str(pbtxt)) == j_labels(str(pbtxt)) == \
+        {0: "person", 2: "dog"}
+    missing = str(tmp_path / "missing.pbtxt")
+    assert _detection_labels(missing) == j_labels(missing)
 
 
 def test_module_entry_point(tmp_path):
