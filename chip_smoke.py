@@ -94,13 +94,28 @@ and reads JPEGs). Phases, each fatal on failure:
              stage split and idle share); the CLI on the weights as a .npz
              with a .pbtxt label map at --chunk-size 8 (every frame finite,
              objd and e2e);
- 10. probe   the ported dsconv probe (deepdish_tpu_torch.tools.probe_dsconv)
+ 10. tflite  the structural weight path on artifacts the script writes
+             itself with numpy (`write_tflite`; there is no tensorflow on
+             the card's machine): a full-width SSD-MobileNetV1 (300, 91
+             classes) whose box and class heads come in reverse level
+             order and which ends in a TFLite_Detection_PostProcess op
+             (generated anchors, scales 10/10/5/5, max_detections 10 <
+             max_outputs 32), and a MARS encoder, each from a seeded donor
+             with batch norms calibrated on the walker scene; both
+             converted by the port (report complete, anchors verified,
+             conversion seconds); float32 on the card, the converted SSD's
+             detections against the donor's with the op's configuration
+             (`_compare_detections`, scores and boxes within 1e-4 of their
+             range) and MARS features within 1e-4; then the CLI with
+             --model and --encoder-model on the two files at --chunk-size 8
+             in bf16 (every frame finite, LSAP launches > 0, objd and e2e);
+ 11. probe   the ported dsconv probe (deepdish_tpu_torch.tools.probe_dsconv)
              at full width: batch 32, 6 layers, all 9 stages, 2 rounds of 4;
              the dsconv launch counts are reset before and read after, and
              both strides must have launched;
- 11. report  the `kernels` JSON line (the LSAP's launches: phases 5, 7, 8
-             and 9), the card's name and power limit, and as the last line
-             {"ok": true, "device": {...}}.
+ 12. report  the `kernels` JSON line (the LSAP's launches: phases 5, 7, 8,
+             9 and 10), the card's name and power limit, and as the last
+             line {"ok": true, "device": {...}}.
 
 Each phase prints its seconds.
 Exits non-zero, printing no result, when there is no card or the port is not
@@ -1497,6 +1512,45 @@ FAMILY_MODELS = ("yolov5s", "yolov3", "efficientdet-lite0")
 FAMILY_THRESHOLD = 0.3     # detector and pipeline score threshold
 
 
+def _calibration_images(h=256, w=256):
+    """Two frames of the walker scene resized to h x w and two seeded noise
+    images (NHWC float32 in [0, 255]): the inputs on which the random
+    donors' batch norms are calibrated."""
+    import torch
+    scene = np.stack([_cli_scene(CLI_START + k)[..., ::-1]
+                      for k in (4, 20)]).astype(np.float32)
+    return torch.cat([
+        torch.nn.functional.interpolate(
+            torch.from_numpy(scene).permute(0, 3, 1, 2), size=(h, w),
+            mode="bilinear").permute(0, 2, 3, 1),
+        torch.from_numpy(np.random.RandomState(SEED + 20).randint(
+            0, 256, (2, h, w, 3)).astype(np.float32))])
+
+
+def _calibrated_init(module, generator, image):
+    """flax's default draw (the port's `flax_default_init_`), then every
+    batch norm's statistics set to those of its input on `image`."""
+    import torch
+    from deepdish_tpu_torch.models import layers
+
+    def set_stats(bn, args):
+        x = args[0]
+        dims = (0, 2, 3) if x.dim() == 4 else (0,)
+        bn.running_mean.copy_(x.mean(dims))
+        bn.running_var.copy_(x.var(dims, unbiased=False))
+
+    layers.flax_default_init_(module, generator)
+    hooks = [m.register_forward_pre_hook(set_stats)
+             for m in module.modules()
+             if isinstance(m, layers.BatchNorm)]
+    try:
+        with torch.no_grad():
+            module(image)
+    finally:
+        for h in hooks:
+            h.remove()
+
+
 @contextlib.contextmanager
 def _family_init():
     """Random-init weights for the families phase: flax's default draw
@@ -1510,33 +1564,11 @@ def _family_init():
     YOLOv3's saturate at 1), and a small change in the draw flips which;
     calibrated, the heads are O(1) and the scores spread. Applies to the
     three families' constructors while the block runs."""
-    import torch
     from deepdish_tpu_torch.models import efficientdet, layers, yolov3, yolov5
-    scene = np.stack([_cli_scene(CLI_START + k)[..., ::-1]
-                      for k in (4, 20)]).astype(np.float32)
-    image = torch.cat([
-        torch.nn.functional.interpolate(
-            torch.from_numpy(scene).permute(0, 3, 1, 2), size=(256, 256),
-            mode="bilinear").permute(0, 2, 3, 1),
-        torch.from_numpy(np.random.RandomState(SEED + 20).randint(
-            0, 256, (2, 256, 256, 3)).astype(np.float32))])
-
-    def set_stats(bn, args):
-        x = args[0]
-        bn.running_mean.copy_(x.mean((0, 2, 3)))
-        bn.running_var.copy_(x.var((0, 2, 3), unbiased=False))
+    image = _calibration_images()
 
     def init(module, generator):
-        layers.flax_default_init_(module, generator)
-        hooks = [m.register_forward_pre_hook(set_stats)
-                 for m in module.modules()
-                 if isinstance(m, layers.BatchNorm)]
-        try:
-            with torch.no_grad():
-                module(image)
-        finally:
-            for h in hooks:
-                h.remove()
+        _calibrated_init(module, generator, image)
     mods = (yolov5, yolov3, efficientdet)
     for m in mods:
         m.flax_default_init_ = init
@@ -2230,6 +2262,471 @@ def phase_frcnn(dev):
 
 # ---------------------------------------------------------------- phase 10
 
+# The tflite phase's artifacts: there is no tensorflow on the card's
+# machine, so the phase writes its own .tflite files, with numpy alone.
+
+def _flex_map(opts):
+    """A flexbuffer whose root is the map `opts` of int, float and bool
+    scalars (what TFLite_Detection_PostProcess's options are): keys sorted
+    bytewise as NUL-terminated strings, a typed vector of key offsets, the
+    map's prefix (keys offset, keys byte width, length), the values at one
+    byte width (4, or 8 when a value needs it) and their packed types, then
+    the root offset, the root's packed type and its byte width."""
+    import struct
+    keys = sorted(opts, key=lambda k: k.encode())
+    fit4 = all(isinstance(v, bool) or (isinstance(v, int)
+                                       and -2 ** 31 <= v < 2 ** 31)
+               or (isinstance(v, float) and float(np.float32(v)) == v)
+               for v in opts.values())
+    w = 4 if fit4 else 8
+    code = {4: 2, 8: 3}[w]
+    out = bytearray()
+    key_pos = []
+    for k in keys:
+        key_pos.append(len(out))
+        out += k.encode() + b"\0"
+
+    def align(n):
+        out.extend(b"\0" * (-len(out) % n))
+
+    def uint(v):
+        out.extend(struct.pack({4: "<I", 8: "<Q"}[w], v))
+    align(w)
+    uint(len(keys))                        # keys vector length
+    keys_vec = len(out)
+    for kp in key_pos:
+        uint(len(out) - kp)
+    uint(len(out) - keys_vec)              # map prefix: keys offset
+    uint(w)                                # keys byte width
+    uint(len(keys))                        # length
+    map_pos = len(out)
+    types = []
+    for k in keys:
+        v = opts[k]
+        if isinstance(v, bool):
+            uint(int(v))
+            types.append(26 << 2 | code)
+        elif isinstance(v, int):
+            out.extend(struct.pack({4: "<i", 8: "<q"}[w], v))
+            types.append(1 << 2 | code)
+        elif isinstance(v, float):
+            out.extend(struct.pack({4: "<f", 8: "<d"}[w], v))
+            types.append(3 << 2 | code)
+        else:
+            raise TypeError(f"flexbuffer option {k}={v!r}")
+    out.extend(bytes(types))
+    align(w)
+    uint(len(out) - map_pos)               # root: offset back to the map
+    out.extend(bytes([9 << 2 | code, w]))  # root packed type (map), width
+    return bytes(out)
+
+
+def _fb_serialize(root, ident=b"TFL3"):
+    """Serialize a flatbuffer from nested specs, front to back: a table is
+    a list of (slot, kind, value) with kind one of 'u8' 'i8' 'i32' 'u32'
+    (inline scalars), 'str' (bytes), 'i32v' 'f32v' 'i64v' (numpy vectors),
+    'u8v' (bytes, 16-byte aligned), 'table' and 'tables'. Each table's
+    vtable is written just before it, and everything a table refers to
+    after it, so that every uoffset is positive."""
+    import struct
+    buf = bytearray(8)
+    inline = {"u8": (1, "<B"), "i8": (1, "<b"), "i32": (4, "<i"),
+              "u32": (4, "<I")}
+
+    def pad_to(n, extra=0):
+        buf.extend(b"\0" * (-(len(buf) + extra) % n))
+
+    def table(fields):
+        nslots = max(f[0] for f in fields) + 1 if fields else 0
+        # 4-byte fields (scalars and uoffsets) first, then 1-byte ones
+        order = sorted(fields, key=lambda f: -inline.get(f[1], (4,))[0])
+        offs, size = {}, 4
+        for slot, kind, _ in order:
+            offs[slot] = size
+            size += inline.get(kind, (4,))[0]
+        pad_to(2)
+        vt = len(buf)
+        buf.extend(struct.pack("<HH", 4 + 2 * nslots, size))
+        buf.extend(struct.pack(f"<{nslots}H", *(offs.get(i, 0)
+                                                for i in range(nslots))))
+        pad_to(4)
+        tp = len(buf)
+        buf.extend(b"\0" * size)
+        struct.pack_into("<i", buf, tp, tp - vt)
+        children = []
+        for slot, kind, value in order:
+            at = tp + offs[slot]
+            if kind in inline:
+                struct.pack_into(inline[kind][1], buf, at, value)
+            else:
+                children.append((at, kind, value))
+        for at, kind, value in children:
+            struct.pack_into("<I", buf, at, child(kind, value) - at)
+        return tp
+
+    def child(kind, value):
+        if kind == "table":
+            return table(value)
+        if kind == "str":
+            pad_to(4)
+            p = len(buf)
+            buf.extend(struct.pack("<I", len(value)) + value + b"\0")
+            return p
+        if kind == "tables":
+            pad_to(4)
+            p = len(buf)
+            buf.extend(struct.pack("<I", len(value)) + b"\0" * 4 * len(value))
+            for i, t in enumerate(value):
+                at = p + 4 + 4 * i
+                struct.pack_into("<I", buf, at, table(t) - at)
+            return p
+        data = (bytes(value) if kind == "u8v" else np.ascontiguousarray(
+            value, {"i32v": "<i4", "f32v": "<f4", "i64v": "<i8"}[kind]))
+        n = len(data) if kind == "u8v" else data.size
+        pad_to(4)
+        pad_to(16 if kind == "u8v" else
+               max(4, data.dtype.itemsize), extra=4)
+        p = len(buf)
+        buf.extend(struct.pack("<I", n))
+        buf.extend(data if kind == "u8v" else data.tobytes())
+        return p
+
+    rp = table(root)
+    struct.pack_into("<I", buf, 0, rp)
+    buf[4:8] = ident
+    return bytes(buf)
+
+
+_TFL_CONV = {"conv": 3, "dw": 4, "dense": 9}
+_TFL_ADD, _TFL_MUL, _TFL_CONCAT, _TFL_CUSTOM = 0, 18, 2, 32
+
+
+def write_tflite(slots, ops, graph, order=None, postprocess=None,
+                 input_shape=(1, 1, 1, 3)):
+    """A .tflite flatbuffer (bytes) holding the op stream that
+    models/convert.py `fold_slots_to_ops` emits for a donor: each conv,
+    depthwise conv and dense layer as CONV_2D / DEPTHWISE_CONV_2D /
+    FULLY_CONNECTED with its kernel in TFLite layout and its batch norm
+    folded (float32 constants), each standalone batch norm as a constant
+    MUL and a constant ADD. `graph` is `trace_graph`'s (conv slots, ups,
+    downs): each weight op reads the output of its immediate weight-bearing
+    ancestors (through a CONCATENATION, a neutral op, when it has several)
+    or the graph input, so the conv dataflow graph is the donor's; the
+    MUL / ADD pairs read the graph input and feed nothing, off that graph.
+    `order` is the slot order of emission (default the slots' own;
+    TF's converter emits e.g. the SSD's heads in reverse level order).
+    `postprocess` (anchors, box head slots, class head slots, options)
+    appends a TFLite_Detection_PostProcess custom op on the
+    concatenated heads, with the anchor table as a constant and the
+    options as a flexbuffer map."""
+    conv_slots, ups, _ = graph
+    node_of = {si: n for n, si in enumerate(conv_slots)}
+    op_of, k = {}, 0
+    for si, slot in enumerate(slots):
+        op_of[si] = k
+        k += 2 if slot.kind == "bn" else 1
+    tensors, buffers, operators, opcodes = [], [[(0, "u8v", b"")]], [], []
+
+    def buffer(arr):
+        buffers.append([(0, "u8v", np.ascontiguousarray(
+            arr, np.float32).tobytes())])
+        return len(buffers) - 1
+
+    def tensor(name, arr=None, shape=None):
+        fields = [(1, "i8", 0), (3, "str", name.encode())]
+        if arr is not None:
+            fields += [(0, "i32v", np.asarray(arr.shape, np.int32)),
+                       (2, "u32", buffer(arr))]
+        elif shape is not None:
+            fields.append((0, "i32v", np.asarray(shape, np.int32)))
+        tensors.append(fields)
+        return len(tensors) - 1
+
+    def opcode(code, custom=None):
+        key = (code, custom)
+        if key not in opcodes:
+            opcodes.append(key)
+        return opcodes.index(key)
+
+    def operator(code, ins, outs, custom=None, options=None):
+        fields = [(0, "u32", opcode(code, custom)),
+                  (1, "i32v", np.asarray(ins, np.int32)),
+                  (2, "i32v", np.asarray(outs, np.int32))]
+        if options is not None:
+            fields += [(5, "u8v", options), (6, "i8", 0)]
+        operators.append(fields)
+
+    def join(srcs, name):
+        if len(srcs) == 1:
+            return srcs[0]
+        t = tensor(name)
+        operator(_TFL_CONCAT, srcs, [t])
+        return t
+
+    t_in = tensor("input", shape=input_shape)
+    out_t = {n: tensor(f"{'/'.join(slots[si].path)}/out")
+             for n, si in enumerate(conv_slots)}
+    for si in (order if order is not None else range(len(slots))):
+        slot = slots[si]
+        name = "/".join(slot.path)
+        if slot.kind == "bn":
+            mul, add = ops[op_of[si]], ops[op_of[si] + 1]
+            t_mul = tensor(f"{name}/mul")
+            operator(_TFL_MUL, [t_in, tensor(f"{name}/mul_c", mul.kernel)],
+                     [t_mul])
+            operator(_TFL_ADD, [t_mul, tensor(f"{name}/add_c", add.kernel)],
+                     [tensor(f"{name}/add")])
+            continue
+        n = node_of[si]
+        op = ops[op_of[si]]
+        src = join([out_t[u] for u in ups[n]], f"{name}/in") \
+            if ups[n] else t_in
+        ins = [src, tensor(f"{name}/kernel", op.kernel)]
+        if op.bias is not None:
+            ins.append(tensor(f"{name}/bias", op.bias))
+        operator(_TFL_CONV[slot.kind], ins, [out_t[n]])
+    if postprocess is not None:
+        anchors, box_slots, cls_slots, options = postprocess
+        boxes = join([out_t[node_of[si]] for si in box_slots], "boxes")
+        scores = join([out_t[node_of[si]] for si in cls_slots], "scores")
+        outs = [tensor("TFLite_Detection_PostProcess" + s)
+                for s in ("", ":1", ":2", ":3")]
+        operator(_TFL_CUSTOM,
+                 [boxes, scores, tensor("anchors",
+                                        np.asarray(anchors, np.float32))],
+                 outs, custom=b"TFLite_Detection_PostProcess",
+                 options=_flex_map(options))
+        outputs = outs
+    else:
+        consumed = {u for n in range(len(conv_slots)) for u in ups[n]}
+        outputs = [out_t[n] for n in range(len(conv_slots))
+                   if n not in consumed]
+    codes = [[(0, "i8", min(code, 127)), (2, "i32", 1), (3, "i32", code)]
+             + ([(1, "str", custom)] if custom else [])
+             for code, custom in opcodes]
+    subgraph = [(0, "tables", tensors),
+                (1, "i32v", np.asarray([t_in], np.int32)),
+                (2, "i32v", np.asarray(outputs, np.int32)),
+                (3, "tables", operators)]
+    return _fb_serialize([(0, "u32", 3), (1, "tables", codes),
+                          (2, "tables", [subgraph]),
+                          (4, "tables", buffers)])
+
+
+TFLITE_THRESHOLD = 0.3     # the postprocess op's and the CLI's threshold
+TFLITE_MAX_DETECTIONS = 10  # below max_outputs (32): the cap bites
+
+
+def _ssd_head_order(slots):
+    """Slot emission order with the SSD's box / class heads last, in
+    reverse level order (TF's converter's), and the heads' slot indices
+    by level."""
+    by_path = {"/".join(s.path): i for i, s in enumerate(slots)}
+    box = [by_path[f"box_head{lv}"] for lv in range(6)]
+    cls = [by_path[f"cls_head{lv}"] for lv in range(6)]
+    heads = set(box + cls)
+    order = [i for i in range(len(slots)) if i not in heads]
+    for lv in reversed(range(6)):
+        order += [box[lv], cls[lv]]
+    return order, box, cls
+
+
+def written_tflite(net, example_shape, postprocess_options=None):
+    """`net`'s weights (a port SSDMobileNetV1 or MarsNet on the CPU) as a
+    .tflite flatbuffer written by `write_tflite`: the op stream of
+    `fold_slots_to_ops` wired by `trace_graph`'s conv graph; for the SSD
+    the heads in reverse level order and, with `postprocess_options`, a
+    TFLite_Detection_PostProcess op carrying the generated anchors."""
+    import torch
+    from deepdish_tpu_torch.models import convert as cvm
+    from deepdish_tpu_torch.models import weights as wm
+    with torch.device("meta"):
+        template = type(net)()
+    _, slots, graph = cvm.trace_graph(template, example_shape)
+    ops = cvm.fold_slots_to_ops(wm.to_flax(net), slots)
+    order, pp = None, None
+    if type(net).__name__ == "SSDMobileNetV1":
+        from deepdish_tpu_torch.models.ssd_mobilenet import generate_anchors
+        order, box, cls = _ssd_head_order(slots)
+        if postprocess_options is not None:
+            pp = (generate_anchors(), box, cls, postprocess_options)
+    return write_tflite(slots, ops, graph, order=order, postprocess=pp,
+                        input_shape=example_shape)
+
+
+def _ssd_pp_options():
+    return dict(max_detections=TFLITE_MAX_DETECTIONS,
+                max_classes_per_detection=1, detections_per_class=100,
+                use_regular_nms=False,
+                nms_score_threshold=TFLITE_THRESHOLD,
+                nms_iou_threshold=0.6, num_classes=90, y_scale=10.0,
+                x_scale=10.0, h_scale=5.0, w_scale=5.0)
+
+
+def phase_tflite(dev):
+    """The structural weight path on written artifacts: a full-width
+    SSD-MobileNetV1 (300, 91 classes) with a TFLite_Detection_PostProcess
+    op and a MARS encoder, each a seeded donor with batch norms calibrated
+    on the walker scene, written as .tflite by `write_tflite` (numpy
+    only), converted by the port (load_ssd_mobilenet_tflite, load_mars):
+    the report complete with the anchors verified; float32 detections of
+    the converted SSD on the card against the donor's with the op's
+    configuration (`_compare_detections`, scores and boxes within 1e-4 of
+    their range); MARS features within 1e-4; then the CLI on both files at
+    --chunk-size 8 in bf16 (every frame finite, LSAP launches > 0).
+    Returns the LSAP launches of the CLI run."""
+    import tempfile
+
+    import torch
+    from deepdish_tpu_torch.kernels import lsap
+    from deepdish_tpu_torch.models import COCO_LABELS, create_detector
+    from deepdish_tpu_torch.models import convert as cvm
+    from deepdish_tpu_torch.models import weights as wm
+    from deepdish_tpu_torch.models.encoders import make_mars_encoder
+    from deepdish_tpu_torch.models.mars import INPUT_SHAPE, MarsNet
+    from deepdish_tpu_torch.models.registry import _pp_det_kw
+    from deepdish_tpu_torch.models.ssd_mobilenet import (INPUT_SIZE,
+                                                         SSDMobileNetDetector,
+                                                         SSDMobileNetV1)
+    t_phase = time.perf_counter()
+    frames_rgb = np.ascontiguousarray(np.stack(
+        [_cli_scene(i) for i in range(CLI_FRAMES)])[..., ::-1])
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. the artifacts, written from calibrated donors
+        t0 = time.perf_counter()
+        ssd = SSDMobileNetV1()
+        _calibrated_init(ssd, torch.Generator().manual_seed(SEED),
+                         _calibration_images(INPUT_SIZE, INPUT_SIZE))
+        mars = MarsNet()
+        _calibrated_init(mars, torch.Generator().manual_seed(SEED + 1),
+                         _calibration_images(*INPUT_SHAPE[:2]))
+        ssd_path = f"{tmp}/ssd_mobilenet_v1_coco_pp.tflite"
+        mars_path = f"{tmp}/mars-small128.tflite"
+        for path, net, shape, opts in (
+                (ssd_path, ssd, (1, INPUT_SIZE, INPUT_SIZE, 3),
+                 _ssd_pp_options()),
+                (mars_path, mars, (1,) + INPUT_SHAPE, None)):
+            with open(path, "wb") as f:
+                f.write(written_tflite(net, shape, opts))
+        sizes = {p: len(open(p, "rb").read()) / 2 ** 20
+                 for p in (ssd_path, mars_path)}
+        log(f"[tflite] donors calibrated and written in "
+            f"{time.perf_counter() - t0:.1f} s: SSD {sizes[ssd_path]:.1f} "
+            f"MiB, MARS {sizes[mars_path]:.1f} MiB")
+
+        # 2. the conversions
+        t0 = time.perf_counter()
+        flat, rep = cvm.load_ssd_mobilenet_tflite(ssd_path)
+        ssd_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mflat, mrep = cvm.load_mars(mars_path)
+        mars_s = time.perf_counter() - t0
+        log(f"[tflite] load_ssd_mobilenet_tflite {ssd_s:.2f} s: assigned "
+            f"{rep['assigned']} of {rep['total']}, missing "
+            f"{len(rep['missing'])}, unused ops {len(rep['unused_ops'])}, "
+            f"anchors_verified {rep.get('anchors_verified')}; load_mars "
+            f"(.tflite) {mars_s:.2f} s: assigned {mrep['assigned']} of "
+            f"{mrep['total']}, missing {len(mrep['missing'])}, unused ops "
+            f"{len(mrep['unused_ops'])}")
+        if rep["assigned"] != rep["total"] or rep["missing"] or \
+                rep["unused_ops"] or not rep.get("anchors_verified") or \
+                mrep["assigned"] != mrep["total"] or mrep["missing"] or \
+                mrep["unused_ops"]:
+            raise SystemExit(f"tflite: conversion reports {rep} {mrep}")
+
+        # 3. float32 detections on the card: converted against the donor
+        pp = rep["postprocess"]
+        conv_det = create_detector(ssd_path, device=dev,
+                                   compute_dtype=torch.float32,
+                                   score_threshold=TFLITE_THRESHOLD)
+        donor_det = SSDMobileNetDetector(
+            state_dict=ssd.state_dict(), device=dev,
+            compute_dtype=torch.float32,
+            **_pp_det_kw(pp, TFLITE_THRESHOLD))
+        fs = _framestep(dev, (FRAME_H, FRAME_W), detector=conv_det)
+        inputs = fs.detector_input(torch.from_numpy(
+            frames_rgb[CLI_START + 6::12][:2]).to(dev))
+        del fs
+        outs = []
+        for det in (conv_det, donor_det):
+            with torch.inference_mode():
+                raw = det.detect(inputs, float(FRAME_W), float(FRAME_H))
+            outs.append([x.cpu().numpy() for x in raw])
+        report, serr, berr = [], 0.0, 0.0
+        for i in range(len(inputs)):
+            p, se, be = _compare_detections(*([x[i] for x in o]
+                                              for o in outs))
+            report += [f"frame {i}: {m}" for m in p]
+            serr, berr = max(serr, se), max(berr, be)
+        n_valid = [int(v.sum()) for v in outs[1][3]]
+        log(f"[tflite] float32 SSD detect on the card, converted vs donor "
+            f"(op anchors, scales {pp.scales}, max_detections "
+            f"{pp.max_detections}, threshold {conv_det.score_threshold}) on "
+            f"{len(inputs)} resized 720p frames, valid {n_valid}: "
+            f"{len(report)} problems, max |score| error {serr:.3e}, max box "
+            f"error {berr:.3e} of the largest box coordinate")
+        if report or serr > 1e-4 or berr > 1e-4 or min(n_valid) <= 0 or \
+                max(n_valid) > TFLITE_MAX_DETECTIONS:
+            raise SystemExit(f"tflite: SSD converted vs donor: {report[:6]}")
+        del conv_det, donor_det, inputs
+
+        # 4. MARS features on the card: converted against the donor
+        encs = [make_mars_encoder(state_dict=sd, device=dev,
+                                  compute_dtype=torch.float32)
+                for sd in (wm.mars_from_flax(mflat), mars.state_dict())]
+        patches = torch.cat([
+            _calibration_images(*INPUT_SHAPE[:2]),
+            torch.from_numpy(np.random.RandomState(SEED + 40).uniform(
+                0, 255, (12,) + INPUT_SHAPE).astype(np.float32))]).to(dev)
+        with torch.inference_mode():
+            got, want = (e.apply(patches) for e in encs)
+        merr = float((got - want).abs().max())
+        log(f"[tflite] float32 MARS on the card, converted vs donor, "
+            f"{len(patches)} patches: max |feature| error {merr:.3e}")
+        if not merr <= 1e-4:
+            raise SystemExit(f"tflite: MARS features differ by {merr}")
+        del encs, patches
+
+        # 5. the CLI on both written files, --chunk-size 8, bf16
+        lsap.launches = 0
+        t0 = time.perf_counter()
+        pipe, timing, n, bad = _run_cli(
+            ["--input", "synthetic://walkers", "--disable-graphics",
+             "--streaming", "0", "--control-port", "0",
+             "--model", ssd_path, "--encoder-model", mars_path,
+             "--wanted-labels", ",".join(COCO_LABELS),
+             "--device", dev.type,
+             "--score-threshold", str(TFLITE_THRESHOLD),
+             "--chunk-size", "8", "--log", f"{tmp}/tflite.log"], CLI_FRAMES)
+    launches = lsap.launches
+    det = pipe.framestep.detector
+    skip = 8
+    counters = {k: v for k, v in
+                pipe.counting.counters_payload().items() if v}
+    log(f"[tflite] CLI 720p --model ssd_mobilenet_v1_coco_pp.tflite "
+        f"--encoder-model mars-small128.tflite --chunk-size 8 "
+        f"({det.compute_dtype}, bgsub on, detections_cap "
+        f"{det.detections_cap}): {n} frames in "
+        f"{time.perf_counter() - t0:.1f} s (conversions included), objd "
+        f"{float(np.mean(timing['objd'][skip:])):.3f} ms/frame, e2e "
+        f"{float(np.mean(timing['e2e'][skip:])):.3f} ms/frame (mean over "
+        f"frames {skip + 1}-{n}), {launches} LSAP launches, {bad} frames "
+        f"with non-finite outputs; nonzero counters {counters}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    log(f"[tflite] card: {smi.stdout.strip() or 'nvidia-smi: no output'}")
+    if n != CLI_FRAMES or bad or launches <= 0 or \
+            det.detections_cap != TFLITE_MAX_DETECTIONS:
+        raise SystemExit(f"tflite: CLI saw {n} frames, {bad} non-finite, "
+                         f"{launches} LSAP launches")
+    del pipe, det
+    return launches
+
+
+# ---------------------------------------------------------------- phase 11
+
 def phase_probe(dev):
     """The ported probe at full width through its entry point; returns the
     dsconv launches by stride, counted from 0 over this run only."""
@@ -2296,11 +2793,12 @@ def main() -> int:
     timed("reference", phase_reference, dev)
     entry["launches"], _ = timed("slice", phase_slice, dev)
     timed("cli", phase_cli, dev)
-    # the LSAP launches of the main path: the slice, the families, CVAT
-    # and Faster R-CNN
+    # the LSAP launches of the main path: the slice, the families, CVAT,
+    # Faster R-CNN and the tflite phase's CLI
     entry["launches"] += timed("families", phase_families, dev)
     entry["launches"] += timed("cvat", phase_cvat, dev)
     entry["launches"] += timed("frcnn", phase_frcnn, dev)
+    entry["launches"] += timed("tflite", phase_tflite, dev)
     by_stride = timed("probe", phase_probe, dev)
     for e, s in zip(ds_entries, (1, 2)):
         e["launches"] = by_stride[s]

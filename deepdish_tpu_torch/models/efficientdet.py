@@ -196,9 +196,13 @@ class EfficientDetLite0(nn.Module):
         dt = self.backbone.stem.conv.weight.dtype
         x = (image.to(dt) - self.norm_mean.to(dt)) / self.norm_std.to(dt)
         feats = self.backbone(x.permute(0, 3, 1, 2))
+        # the lateral convs in the JAX package's call order (lat3 ... lat6),
+        # which models/convert.py's trace_slots records
+        p3 = self.lat3(feats[3])
+        p4 = self.lat4(feats[4])
+        p5 = self.lat5(feats[5])
         p6 = _down2(self.lat6(feats[5]))
-        p = [self.lat3(feats[3]), self.lat4(feats[4]), self.lat5(feats[5]),
-             p6, _down2(p6)]
+        p = [p3, p4, p5, p6, _down2(p6)]
         for i in range(FPN_REPEATS):
             p = getattr(self, f"bifpn{i}")(p)
         n = image.shape[0]

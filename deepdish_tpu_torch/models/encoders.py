@@ -103,10 +103,13 @@ def create_box_encoder(model_name: str, state_dict=None, device=None,
                        **kw) -> EncoderSpec:
     """Filename-substring dispatch (generate_detections.py:180-189):
     'dummy', 'constant', else MARS. MARS weights load from a flat .npz of
-    the JAX package's variables (models/weights.py), a frozen .pb or a TF
-    checkpoint (name map, models/convert.py `load_mars`; these need
-    tensorflow); a .tflite raises until the structural conversion is
-    ported. A name that is no file gives random weights, as in the JAX
+    the JAX package's variables (models/weights.py), a .tflite
+    (structural conversion), a frozen .pb or a TF checkpoint (name map;
+    these two need tensorflow), all through models/convert.py `load_mars`.
+    A full-integer .tflite, which the JAX package runs on its integer
+    datapath (models/qgraph.py), raises NotImplementedError until that is
+    ported (ROADMAP.md §1 item 8): it never runs on dequantized float
+    weights. A name that is no file gives random weights, as in the JAX
     package."""
     name = model_name or ""
     if "dummy" in name:
@@ -121,10 +124,17 @@ def create_box_encoder(model_name: str, state_dict=None, device=None,
             state_dict = w.mars_from_flax(w._flatten(w.load_npz(name)))
         elif is_ckpt or (os.path.exists(name)
                          and name.endswith((".pb", ".tflite"))):
-            from .convert import load_mars
+            from .convert import is_full_integer, load_mars
+            if name.endswith(".tflite") and is_full_integer(name):
+                raise NotImplementedError(
+                    f"{name} is a full-integer TFLite encoder, which the "
+                    "JAX package runs on its integer datapath "
+                    "(models/qgraph.py); that waits for a later slice of "
+                    "the port (ROADMAP.md §1 item 8). A float or "
+                    "dynamic-range .tflite converts.")
             state_dict = w.mars_from_flax(load_mars(name)[0])
         elif os.path.exists(name):
             raise ValueError(f"{name}: the port loads MARS weights from a "
-                             ".npz of the JAX package's variables, a frozen "
-                             ".pb or a TF checkpoint")
+                             ".npz of the JAX package's variables, a "
+                             ".tflite, a frozen .pb or a TF checkpoint")
     return make_mars_encoder(state_dict=state_dict, device=device, **kw)

@@ -1,5 +1,5 @@
 """Detector registry: deepdish_tpu/models/registry.py (`create_detector`
-:183) without what is still to be ported.
+:183) without the quantized paths, which are still to be ported.
 
 The reference picks its detector backend by model-filename substring
 (deepdish.py:482-502). As in the JAX package, 'scripted:<name>' gives a
@@ -8,12 +8,15 @@ TF-OD SSD or Faster R-CNN converted from its variables (models/convert.py),
 else the host SavedModel executor; then 'faster_rcnn' / 'frcnn' Faster
 R-CNN, 'yolov5' YOLOv5s, 'yolo' YOLOv3, 'efficientdet' (or a non-SSD
 '.tflite' name) EfficientDet-Lite0, and 'ssd' / 'mobilenet' / 'edgetpu'
-SSD-MobileNetV1. Weights come from a SavedModel directory, a flat .npz of
-the JAX package's variables, or random init; `.pbtxt` label maps give
-1-based ids. Still to be ported, and raising here: the structural
-conversion of .tflite and .h5 files (the next slice, ROADMAP.md §1 item 2;
-convert them to .npz with the JAX package meanwhile) and the quantized
-paths (--quantized-inference, --detector-int8).
+SSD-MobileNetV1. Weights come from a .tflite flatbuffer (SSD, YOLOv5s,
+EfficientDet-Lite0; structural conversion, with the fused postprocess op's
+anchors, decode scales, thresholds and max_detections and, for
+EfficientDet, the metadata's normalization and packed labels), a Keras .h5
+(YOLOv3), a SavedModel directory, a flat .npz of the JAX package's
+variables, or random init; a weight file that does not convert raises
+unless --allow-random-weights. `.pbtxt` label maps give 1-based ids.
+Still to be ported, and raising here: the quantized paths
+(--quantized-inference, --detector-int8; ROADMAP.md §1 item 8).
 """
 from __future__ import annotations
 
@@ -154,29 +157,92 @@ def _is_ssd(name: str) -> bool:
     return "ssd" in name or "mobilenet" in name or "edgetpu" in name
 
 
-def _load_npz_weights(model_name: str, family: str,
-                      allow_random_weights: bool):
-    """A port state_dict from a flat .npz of the JAX package's variables
-    for `family`; None (random init) for any other file when
-    `allow_random_weights`, else a ValueError."""
-    if model_name.endswith(".npz"):
-        from . import weights as w
-        bridge = {"yolov5": w.yolov5_from_flax, "yolov3": w.yolov3_from_flax,
-                  "efficientdet": w.efficientdet_from_flax,
-                  "faster_rcnn": w.faster_rcnn_from_flax,
-                  "ssd": w.ssd_from_flax}[family]
-        return bridge(w._flatten(w.load_npz(model_name)))
-    if not allow_random_weights:
-        raise ValueError(
-            f"{model_name}: the port loads {family} weight files from a "
-            ".npz of the JAX package's variables (and TF-OD exports from a "
-            "SavedModel directory); converting .tflite and .h5 files "
-            f"{_LATER} (item 2's structural half; convert with the JAX "
-            "package first); pass --allow-random-weights to run without "
-            "pre-trained weights")
-    print(f"{model_name} not recognized as a weight artifact; "
-          "running with random-init weights")
-    return None
+def _load_real_weights(path: str, family: str):
+    """A real weight artifact (TFLite flatbuffer, Keras .h5, or a .npz of
+    the JAX package's variables) as the port state_dict of `family`.
+    Returns (state_dict, extras); state_dict is None when the path is not
+    a loadable artifact for the family. extras carries the flatbuffer's
+    fused TFLite_Detection_PostProcess parameters (embedded anchors,
+    decode scales, NMS options) when the file ends in that custom op, the
+    artifacts the reference ships (tools/ssd_mobilenet.py:100-127,
+    tools/tflite_object_detector.py:154-172)."""
+    from . import convert as cv
+    from . import weights as w
+    bridge = {"yolov5": w.yolov5_from_flax, "yolov3": w.yolov3_from_flax,
+              "efficientdet": w.efficientdet_from_flax,
+              "faster_rcnn": w.faster_rcnn_from_flax,
+              "ssd": w.ssd_from_flax}[family]
+    if path.endswith(".npz"):
+        return bridge(w._flatten(w.load_npz(path))), {}
+    if path.endswith(".tflite"):
+        loader = {"yolov5": cv.load_yolov5_tflite,
+                  "efficientdet": cv.load_efficientdet_tflite,
+                  "ssd": cv.load_ssd_mobilenet_tflite}.get(family)
+        if loader is not None:
+            flat, report = loader(path)
+            extras = {}
+            pp = report.get("postprocess")
+            if pp is not None:
+                extras["postprocess"] = pp
+                if report.get("anchors_verified") is False:
+                    print("note: generated anchors differ from the "
+                          "flatbuffer's embedded anchor table "
+                          f"({report.get('anchors_max_abs_diff')}); "
+                          "using the embedded anchors.")
+            return bridge(flat), extras
+    if path.endswith(".h5") and family == "yolov3":
+        return bridge(cv.load_yolov3_h5(path)[0]), {}
+    return None, {}
+
+
+def _pp_det_kw(pp, score_threshold, anchor_scale=1.0):
+    """Detector keywords from a fused TFLite_Detection_PostProcess op, the
+    file's own configuration (the reference consumes the op's outputs:
+    tools/ssd_mobilenet.py:100-127, tools/tflite_object_detector.py:
+    154-172): the embedded anchor table, the decode scales, the larger of
+    the CLI's and the op's score threshold, the op's NMS IoU, and its
+    max_detections as the validity cap (the op emits at most that many
+    boxes, so slots past it are invalid)."""
+    return dict(anchors=pp.anchors * anchor_scale, box_scale=pp.scales,
+                score_threshold=max(score_threshold,
+                                    pp.nms_score_threshold),
+                iou_threshold=pp.nms_iou_threshold,
+                detections_cap=pp.max_detections)
+
+
+def _load_weights(model_name: str, family: str, allow_random_weights: bool):
+    """(state_dict, extras) from the weight file `model_name`, with the
+    JAX package's fail-loudly contract: a file that does not convert, or
+    that no converter of the family reads, raises unless
+    `allow_random_weights` (then random init)."""
+    try:
+        state_dict, extras = _load_real_weights(model_name, family)
+    except Exception as e:
+        if not allow_random_weights:
+            raise ValueError(
+                f"weight conversion failed for {model_name} (inferred "
+                f"family {family!r}): {e}. If the family is wrong, "
+                "rename the file or convert offline with `python -m "
+                "deepdish_tpu_torch.models.convert --family ...`; pass "
+                "--allow-random-weights to run without pre-trained "
+                "weights.") from e
+        print(f"weight conversion failed for {model_name} ({e}); "
+              "running with random-init weights")
+        return None, {}
+    if state_dict is None:
+        # the file exists but no converter reads it (a .pb, or an .h5 of
+        # a family other than yolov3): the same contract
+        if not allow_random_weights:
+            raise ValueError(
+                f"{model_name} is not a loadable weight artifact for "
+                f"inferred family {family!r} (supported: .tflite, "
+                ".npz, yolov3 .h5). Convert offline with `python -m "
+                "deepdish_tpu_torch.models.convert` or pass "
+                "--allow-random-weights to run without pre-trained "
+                "weights.")
+        print(f"{model_name} not recognized as a weight artifact; "
+              "running with random-init weights")
+    return state_dict, extras
 
 
 def _saved_model_detector(model_dir, wanted_labels, label_file,
@@ -231,10 +297,12 @@ def create_detector(model_name: str = "ssd_mobilenet", wanted_labels=None,
     the host SavedModel executor; then 'faster_rcnn' / 'frcnn', 'yolov5',
     'yolo', 'efficientdet' (or a non-SSD '.tflite' name) and 'ssd' /
     'mobilenet' / 'edgetpu' give that family's detector on `device`
-    (default CUDA), with weights from `state_dict`, a flat .npz of the JAX
-    package's variables named by `model_name`, or random init (`generator`
-    and `compute_dtype` in **kw). A weight file that is not such an .npz
-    raises unless `allow_random_weights`. `label_allow`, `label_deny` and
+    (default CUDA), with weights from `state_dict`, the weight file named
+    by `model_name` (.tflite, yolov3 .h5 or a .npz of the JAX package's
+    variables, converted on load; a .tflite's postprocess op and metadata
+    configure the detector), or random init (`generator` and
+    `compute_dtype` in **kw). A weight file that does not convert raises
+    unless `allow_random_weights`. `label_allow`, `label_deny` and
     `max_results` configure EfficientDet's result filter; `calib_images`
     belongs to the int8 SSD, which is not ported yet. The quantized paths
     raise NotImplementedError."""
@@ -265,9 +333,11 @@ def create_detector(model_name: str = "ssd_mobilenet", wanted_labels=None,
                 "- rename the path or pass --allow-random-weights to run "
                 "without pre-trained weights.")
     family = _family(name)
+    extras = {}
     if state_dict is None and is_file:
-        state_dict = _load_npz_weights(model_name, family,
-                                       allow_random_weights)
+        state_dict, extras = _load_weights(model_name, family,
+                                           allow_random_weights)
+    pp = extras.get("postprocess")
     common = dict(state_dict=state_dict, max_outputs=max_outputs,
                   device=device, **kw)
     if family == "faster_rcnn":
@@ -278,29 +348,53 @@ def create_detector(model_name: str = "ssd_mobilenet", wanted_labels=None,
         det.labels = _detection_labels(label_file)
         det.label_offset = 0
         return det
+    labels = None
     if family == "yolov5":
         det = YOLOv5Detector(score_threshold=max(score_threshold, 0.25),
                              **common)
     elif family == "yolov3":          # yolov3 / yolo.h5 (deepdish.py:486)
         det = YOLOv3Detector(score_threshold=score_threshold, **common)
     elif family == "efficientdet":
-        # the metadata's default normalization (mean 127, std 128); a
-        # flatbuffer's own metadata and labels come with its conversion
-        det = EfficientDetLite0Detector(
-            score_threshold=score_threshold, label_allow=label_allow,
-            label_deny=label_deny, max_results=max_results, **common)
+        # metadata-driven configuration like the reference's generic
+        # TFLite detector (tools/tflite_object_detector.py:117-137): the
+        # normalization mean / std and packed labels of the flatbuffer when
+        # present, else the EfficientDet-Lite export values
+        meta = {"mean": (127.0,), "std": (128.0,), "labels": None}
+        if is_file and model_name.endswith(".tflite"):
+            try:
+                from .tflite_meta import read_metadata
+                meta.update(read_metadata(model_name))
+            except Exception as e:
+                print(f"tflite metadata unavailable ({e}); using defaults")
+        det_kw = dict(score_threshold=score_threshold,
+                      label_allow=label_allow, label_deny=label_deny,
+                      max_results=max_results)
+        if pp is not None:
+            # the float decode works in pixels, so the op's normalized
+            # anchors are scaled by the model input size
+            from .efficientdet import INPUT_SIZE as _EDET_SIZE
+            det_kw.update(_pp_det_kw(pp, score_threshold,
+                                     anchor_scale=float(_EDET_SIZE)))
+        det = EfficientDetLite0Detector(norm_mean=meta["mean"],
+                                        norm_std=meta["std"], **det_kw,
+                                        **common)
+        labels = meta.get("labels")
     elif _is_ssd(name):
         if detector_int8 or (not is_file and "int8" in name):
             raise NotImplementedError(f"--detector-int8 {_LATER}, with "
                                       "models/ssd_q.py (item 8)")
-        det = SSDMobileNetDetector(score_threshold=score_threshold,
-                                   **common)
+        det_kw = dict(score_threshold=score_threshold)
+        if pp is not None:
+            # (the op's fast NMS is class-agnostic; the pipeline's own
+            # class-agnostic NMS, deepdish.py:995, covers that stage)
+            det_kw.update(_pp_det_kw(pp, score_threshold))
+        det = SSDMobileNetDetector(**det_kw, **common)
     else:
         raise ValueError(
             f"cannot determine detector backend from {model_name!r}")
     # the reference adaptor's +1 labelmap offset is already applied:
     # COCO_LABELS has no background entry
-    det.labels = dict(enumerate(load_labels(label_file)))
+    det.labels = dict(enumerate(labels or load_labels(label_file)))
     det.label_offset = 0
     if family == "efficientdet":
         det.finalize_label_filter()

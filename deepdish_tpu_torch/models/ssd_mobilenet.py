@@ -179,12 +179,15 @@ def decode_boxes(box_encodings: torch.Tensor, anchors: torch.Tensor,
 
 
 def postprocess_detections(boxes, probs, orig_w, orig_h, *, top_k,
-                           score_threshold, iou_threshold, max_outputs):
+                           score_threshold, iou_threshold, max_outputs,
+                           detections_cap=None):
     """The reference SSD postprocess (tools/ssd_mobilenet.py:100-150) on
     decoded boxes (..., N, 4) yxyx and probs (..., N, C) without the
     background column: NaN scrub -> top-k -> confidence filter -> xyxy in
     original pixels -> per-class NMS -> compaction to max_outputs slots in
-    descending-score order. Returns (xyxy, classes int32, scores, valid)."""
+    descending-score order; with `detections_cap` < max_outputs (a fused
+    postprocess op's max_detections) the slots past the cap are invalid.
+    Returns (xyxy, classes int32, scores, valid)."""
     scores = probs.amax(-1)
     classes = probs.argmax(-1).to(torch.int32)
     bad = torch.isnan(boxes).any(-1) | torch.isnan(scores)
@@ -206,6 +209,11 @@ def postprocess_detections(boxes, probs, orig_w, orig_h, *, top_k,
     pos = torch.arange(top_k, device=boxes.device)
     order = stable_argsort(torch.where(keep, pos, top_k))[..., :K]
     valid = keep.gather(-1, order)
+    if detections_cap is not None and detections_cap < K:
+        # slots are in descending-score order, so this keeps exactly the
+        # boxes the fused op would have emitted
+        valid = valid & (torch.arange(K, device=valid.device)
+                         < detections_cap)
     return (xyxy.gather(-2, order[..., None].expand(order.shape + (4,))),
             top_classes.gather(-1, order), top_scores.gather(-1, order),
             valid)
@@ -216,12 +224,17 @@ class SSDMobileNetDetector:
     (default CUDA). `state_dict` is the network's weights (for example from
     `models.weights.ssd_from_flax`); without it the weights are random,
     drawn like flax's defaults from `generator` (a CPU generator; default
-    seeded with 0)."""
+    seeded with 0). `anchors` (normalized (A, 4) [yc, xc, h, w]),
+    `box_scale` and `detections_cap` are what a fused
+    TFLite_Detection_PostProcess op sets: its embedded anchor table and
+    decode scales override the generated ones, and slots past its
+    max_detections are invalid (the shapes stay max_outputs)."""
 
     def __init__(self, state_dict=None, max_outputs: int = 32,
                  top_k: int = 100, score_threshold: float = 0.5,
                  iou_threshold: float = 0.5,
                  compute_dtype: Optional[torch.dtype] = None,
+                 anchors=None, box_scale=None, detections_cap=None,
                  device=None, generator: Optional[torch.Generator] = None):
         self.device = resolve_device(device)
         self.width = self.height = INPUT_SIZE
@@ -235,8 +248,11 @@ class SSDMobileNetDetector:
                                else torch.Generator().manual_seed(0))
         self.net = net.to(self.device, self.compute_dtype).eval()
         self.net.requires_grad_(False)
-        self.anchors = torch.from_numpy(generate_anchors()).to(self.device)
-        self.box_scale = BOX_SCALE
+        self.anchors = torch.from_numpy(np.asarray(
+            anchors if anchors is not None else generate_anchors(),
+            np.float32)).to(self.device)
+        self.box_scale = tuple(box_scale) if box_scale else BOX_SCALE
+        self.detections_cap = detections_cap
         self.max_outputs = max_outputs
         self.top_k = top_k
         self.score_threshold = score_threshold
@@ -257,4 +273,5 @@ class SSDMobileNetDetector:
                 boxes, probs, orig_w, orig_h, top_k=self.top_k,
                 score_threshold=self.score_threshold,
                 iou_threshold=self.iou_threshold,
-                max_outputs=self.max_outputs)
+                max_outputs=self.max_outputs,
+                detections_cap=self.detections_cap)

@@ -310,12 +310,41 @@ def test_mars_conversion_matches_jax(mars_donor):
 
 
 def test_mars_tflite_refused(tmp_path):
+    """A MARS .tflite that is no flatbuffer fails to convert (never random
+    weights); a full-integer one (its conv's activation input quantized),
+    which the JAX package runs on its integer datapath, is refused until
+    that is ported."""
+    import chip_smoke
+    from deepdish_tpu_torch.models import create_box_encoder
     path = tmp_path / "mars-small128.tflite"
     path.write_bytes(b"\0" * 16)
-    with pytest.raises(NotImplementedError, match="TFLite/Keras"):
-        pcv.load_mars(str(path))
-    from deepdish_tpu_torch.models import create_box_encoder
-    with pytest.raises(NotImplementedError, match="TFLite/Keras"):
+    for call in (lambda: pcv.load_mars(str(path)),
+                 lambda: create_box_encoder(str(path), device="cpu")):
+        with pytest.raises(ValueError, match="not a TFLite flatbuffer"):
+            call()
+    kern = np.ones((4, 3, 3, 3), np.int8).tobytes()
+    quant = [(2, "f32v", np.array([0.5], np.float32)),
+             (3, "i64v", np.array([0], np.int64))]
+    blob = chip_smoke._fb_serialize([
+        (0, "u32", 3),
+        (1, "tables", [[(0, "i8", 3), (2, "i32", 1), (3, "i32", 3)]]),
+        (2, "tables", [[
+            (0, "tables", [
+                [(0, "i32v", np.array([1, 8, 8, 3], np.int32)),
+                 (1, "i8", 9), (3, "str", b"input"), (4, "table", quant)],
+                [(0, "i32v", np.array([4, 3, 3, 3], np.int32)),
+                 (1, "i8", 9), (2, "u32", 1), (3, "str", b"kernel"),
+                 (4, "table", quant)],
+                [(1, "i8", 9), (3, "str", b"out"), (4, "table", quant)]]),
+            (1, "i32v", np.array([0], np.int32)),
+            (2, "i32v", np.array([2], np.int32)),
+            (3, "tables", [[(0, "u32", 0),
+                            (1, "i32v", np.array([0, 1], np.int32)),
+                            (2, "i32v", np.array([2], np.int32))]])]]),
+        (4, "tables", [[(0, "u8v", b"")], [(0, "u8v", kern)]])])
+    path.write_bytes(blob)
+    assert pcv.is_full_integer(str(path))
+    with pytest.raises(NotImplementedError, match="item 8"):
         create_box_encoder(str(path), device="cpu")
 
 

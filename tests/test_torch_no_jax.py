@@ -1,9 +1,11 @@
 """The port stands alone: deepdish_tpu_torch and chip_smoke.py import no
 jax, no flax and nothing of deepdish_tpu, its entry points need a card
-unless the caller asks for the CPU, the CLI's modules import cv2 and PIL
-only inside the functions that need them (the card's machine has
-neither), and no module imports tensorflow or h5py outside a function (the
-weight readers need them only for the files they read)."""
+unless the caller asks for the CPU, the CLI's modules and the host TFLite
+executor import cv2 and PIL only inside the functions that need them (the
+card's machine has neither), no module imports tensorflow or h5py outside
+a function (the weight readers need them only for the files they read),
+and none imports flatbuffers at all (the TFLite readers parse the files
+with numpy)."""
 import ast
 import os
 import subprocess
@@ -19,7 +21,8 @@ _BANNED = ("jax", "flax", "deepdish_tpu")
 _NO_TOP_LEVEL = ("cv2", "PIL")
 _HOST_LAZY = [os.path.join(PKG, *p) for p in (
     ("pipeline", "runtime.py"), ("pipeline", "elements.py"),
-    ("pipeline", "mjpeg.py"), ("models", "registry.py"))]
+    ("pipeline", "mjpeg.py"), ("models", "registry.py"),
+    ("models", "tflite_host.py"))]
 
 
 def _sources():
@@ -103,6 +106,21 @@ def test_tensorflow_and_h5py_only_inside_functions(path):
     assert not bad, f"{path} imports {bad} outside a function"
 
 
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_flatbuffers_import(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            bad.append(node.module or "")
+    bad = [m for m in bad if m.split(".")[0] == "flatbuffers"]
+    assert not bad, f"{path} imports {bad}"
+
+
 def test_import_pulls_no_jax():
     code = ("import sys, deepdish_tpu_torch.pipeline, "
             "deepdish_tpu_torch.models, deepdish_tpu_torch.kernels.lsap, "
@@ -114,11 +132,13 @@ def test_import_pulls_no_jax():
             "deepdish_tpu_torch.kernels.dsconv, deepdish_tpu_torch.ops.dsconv, "
             "deepdish_tpu_torch.tools.probe_dsconv, "
             "deepdish_tpu_torch.models.convert, "
+            "deepdish_tpu_torch.models.tflite_meta, "
+            "deepdish_tpu_torch.models.tflite_host, "
             "deepdish_tpu_torch.models.saved_model, "
             "deepdish_tpu_torch.models.faster_rcnn\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'deepdish_tpu', 'cv2', 'PIL', 'tensorflow', "
-            "'h5py')]\n"
+            "'h5py', 'flatbuffers')]\n"
             "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
