@@ -109,12 +109,29 @@ and reads JPEGs). Phases, each fatal on failure:
              range) and MARS features within 1e-4; then the CLI with
              --model and --encoder-model on the two files at --chunk-size 8
              in bf16 (every frame finite, LSAP launches > 0, objd and e2e);
- 11. probe   the ported dsconv probe (deepdish_tpu_torch.tools.probe_dsconv)
+ 11. quantized  the quantized paths at full width, on full-integer
+             .tflite files the script writes itself (`QuantGraph`, numpy
+             only, quantized on the walker scene): SSD-MobileNetV1 at 300
+             with LOGISTIC and the postprocess op (`quant_ssd_donor`), MARS
+             at 128x64 with int8 ELU, MAX_POOL_2D and L2_NORMALIZATION, and
+             one graph per op of the YOLOv5 / EfficientDet files; every
+             tensor of the integer executor on the card ("mxu":
+             torch._int_mm, "portable": float64, and for the SSD "xconv")
+             equal to the CPU executor's on 8 inputs (DEQUANTIZE bit-equal,
+             SOFTMAX within 5e-7); the quantized SSD's detections card vs
+             CPU; the w8a8 SSD (300) and MARS (128x64) int32 accumulators on
+             the card equal to the CPU's on the same int8 inputs, batch 8;
+             the integer contractions' device time a frame (profiler); the
+             CLI at --chunk-size 8 with --quantized-inference on the two
+             files and with --detector-int8 --encoder-model mars_int8 (bf16:
+             objd, e2e, host syncs a frame, LSAP launches > 0), and each in
+             float32 on the card and on the CPU, whose counters must agree;
+ 12. probe   the ported dsconv probe (deepdish_tpu_torch.tools.probe_dsconv)
              at full width: batch 32, 6 layers, all 9 stages, 2 rounds of 4;
              the dsconv launch counts are reset before and read after, and
              both strides must have launched;
- 12. report  the `kernels` JSON line (the LSAP's launches: phases 5, 7, 8,
-             9 and 10), the card's name and power limit, and as the last
+ 13. report  the `kernels` JSON line (the LSAP's launches: phases 5, 7, 8,
+             9, 10 and 11), the card's name and power limit, and as the last
              line {"ok": true, "device": {...}}.
 
 Each phase prints its seconds.
@@ -936,9 +953,9 @@ def phase_tracker(dev):
 # ---------------------------------------------------------------- phase 5
 
 def _framestep(dev, frame_shape, compute_dtype=None, step_cfg=None,
-               detector=None):
+               detector=None, encoder=None):
     """A FrameStep at the CLI's default widths with random seeded weights:
-    `detector`, or SSD-MobileNetV1, and MARS."""
+    `detector`, or SSD-MobileNetV1, and `encoder`, or MARS."""
     import torch
     from deepdish_tpu_torch import tracker as tt
     from deepdish_tpu_torch.models import (COCO_LABELS, create_box_encoder,
@@ -950,8 +967,9 @@ def _framestep(dev, frame_shape, compute_dtype=None, step_cfg=None,
         "ssd_mobilenet", device=dev, max_outputs=32,
         compute_dtype=compute_dtype,
         generator=torch.Generator().manual_seed(SEED))
-    enc = create_box_encoder("mars", device=dev, compute_dtype=compute_dtype,
-                             generator=torch.Generator().manual_seed(SEED + 1))
+    enc = encoder or create_box_encoder(
+        "mars", device=dev, compute_dtype=compute_dtype,
+        generator=torch.Generator().manual_seed(SEED + 1))
     cfg = tt.TrackerConfig(max_tracks=64, max_detections=32,
                            gallery_size=128, feature_dim=128,
                            num_labels=len(COCO_LABELS))
@@ -1256,13 +1274,20 @@ def _run_cli(argv, n_frames=None):
 def _float32_models():
     """The CLI's detectors and MARS in float32 on any device (the parity
     configuration; the card's default is bf16): compute_dtype bound into
-    the registry's classes and the encoder factory while the block runs."""
+    the registry's classes and the encoder factories (the quantized ones
+    included) while the block runs."""
     import torch
-    from deepdish_tpu_torch.models import encoders, registry
+    from deepdish_tpu_torch.models import (encoders, mars_q, qgraph,
+                                           registry, ssd_q)
     names = ("SSDMobileNetDetector", "YOLOv5Detector", "YOLOv3Detector",
              "EfficientDetLite0Detector")
     saved = [(registry, n, getattr(registry, n)) for n in names] + \
-        [(encoders, "make_mars_encoder", encoders.make_mars_encoder)]
+        [(encoders, "make_mars_encoder", encoders.make_mars_encoder),
+         (qgraph, "QuantizedSSDDetector", qgraph.QuantizedSSDDetector),
+         (qgraph, "make_quantized_mars_encoder",
+          qgraph.make_quantized_mars_encoder),
+         (ssd_q, "SSDMobileNetInt8Detector", ssd_q.SSDMobileNetInt8Detector),
+         (mars_q, "make_mars_int8_encoder", mars_q.make_mars_int8_encoder)]
     for mod, name, obj in saved:
         setattr(mod, name, functools.partial(obj,
                                              compute_dtype=torch.float32))
@@ -1596,8 +1621,10 @@ def _compare_detections(card, cpu):
     the card and the CPU: the same valid count, and slot by slot the same
     class, score and box, except that within a run of scores tied to 1e-5
     (`_tie_groups` of the CPU's) the rows may come in either order, so
-    each side's run is sorted by (class, x1) first. Returns (problems, max
-    score error, max box error relative to the largest box coordinate:
+    each card row of such a run is paired with the CPU row of its class
+    whose box is nearest (anchors in one column have x1 within an ulp of
+    each other, so no sort key orders both sides alike). Returns (problems,
+    max score error, max box error relative to the largest box coordinate:
     random-weight boxes reach thousands of pixels)."""
     (cb, cc, cs, cv), (pb, pc, ps, pv) = card, cpu
     if cv.sum() != pv.sum():
@@ -1609,13 +1636,16 @@ def _compare_detections(card, cpu):
     scale = max(float(np.abs(pb[:n]).max(initial=0)), 1.0)
     serr = berr = 0.0
     for a, b in _tie_groups(ps[:n]):
-        oc = a + np.lexsort((cb[a:b, 0], cc[a:b]))
-        op = a + np.lexsort((pb[a:b, 0], pc[a:b]))
-        if not np.array_equal(cc[oc], pc[op]):
-            problems.append(f"classes differ in slots {a}-{b}")
-            continue
-        serr = max(serr, float(np.abs(cs[oc] - ps[op]).max()))
-        berr = max(berr, float(np.abs(cb[oc] - pb[op]).max()) / scale)
+        free = list(range(a, b))
+        for i in range(a, b):
+            same = [j for j in free if pc[j] == cc[i]]
+            if not same:
+                problems.append(f"classes differ in slots {a}-{b}")
+                break
+            j = min(same, key=lambda j: float(np.abs(cb[i] - pb[j]).max()))
+            free.remove(j)
+            serr = max(serr, float(abs(cs[i] - ps[j])))
+            berr = max(berr, float(np.abs(cb[i] - pb[j]).max()) / scale)
     return problems, serr, berr
 
 
@@ -2331,6 +2361,7 @@ def _fb_serialize(root, ident=b"TFL3"):
     import struct
     buf = bytearray(8)
     inline = {"u8": (1, "<B"), "i8": (1, "<b"), "i32": (4, "<i"),
+              "f32": (4, "<f"),
               "u32": (4, "<I")}
 
     def pad_to(n, extra=0):
@@ -2727,6 +2758,986 @@ def phase_tflite(dev):
 
 # ---------------------------------------------------------------- phase 11
 
+# The quantized phase's artifacts: full-integer .tflite files written with
+# numpy (no tensorflow on the card's machine). `QuantGraph` records an op
+# stream in float, runs it on calibration inputs to take every tensor's
+# range, then writes the post-training full-integer file the TF converter
+# would: int8 activations (asymmetric, per tensor), int8 weights
+# (symmetric; per output channel for CONV_2D and DEPTHWISE_CONV_2D, per
+# tensor for FULLY_CONNECTED), int32 biases at scale in * w, constants of
+# MUL / ADD / SUB as int8 tensors, and the builtin options of every op.
+
+_Q_CODES = dict(add=0, avgpool=1, concat=2, conv=3, dw=4, dequantize=6,
+                fc=9, l2norm=11, logistic=14, maxpool=17, mul=18,
+                reshape=22, softmax=25, custom=32, pad=34, sub=41,
+                slice=45, tile=69, resize_nn=97, elu=111, quantize=114)
+# kind -> (BuiltinOptions union type, [(slot, flatbuffer kind, attr)])
+_Q_OPTIONS = {
+    "conv": (1, [(0, "i8", "padding"), (1, "i32", "stride"),
+                 (2, "i32", "stride"), (3, "i8", "act")]),
+    "dw": (2, [(0, "i8", "padding"), (1, "i32", "stride"),
+               (2, "i32", "stride"), (3, "i32", "depth_multiplier"),
+               (4, "i8", "act")]),
+    "fc": (8, [(0, "i8", "act")]),
+    "maxpool": (5, [(0, "i8", "padding"), (1, "i32", "stride"),
+                    (2, "i32", "stride"), (3, "i32", "k"),
+                    (4, "i32", "k")]),
+    "softmax": (9, [(0, "f32", "beta")]),
+    "concat": (10, [(0, "i32", "axis")]),
+    "add": (11, [(0, "i8", "act")]),
+    "l2norm": (12, []),
+    "reshape": (17, [(0, "i32v", "shape")]),
+    "mul": (21, [(0, "i8", "act")]),
+    "pad": (22, []),
+    "sub": (28, [(0, "i8", "act")]),
+    "slice": (32, []),
+    "resize_nn": (74, [(0, "u8", "align_corners"),
+                       (1, "u8", "half_pixel_centers")]),
+}
+_Q_OPTIONS["avgpool"] = _Q_OPTIONS["maxpool"]
+_Q_TIED = ("reshape", "concat", "maxpool", "avgpool", "pad", "tile",
+           "slice", "resize_nn")
+
+
+def _same_pads(size, k, stride):
+    """TFLite SAME padding (before, after) of one axis."""
+    out = -(-size // stride)
+    total = max(0, (out - 1) * stride + k - size)
+    return total // 2, total - total // 2
+
+
+def _affine_params(lo, hi):
+    """Asymmetric int8 (scale, zero point) covering [lo, hi] and 0."""
+    lo, hi = min(float(lo), 0.0), max(float(hi), 0.0)
+    scale = max(hi - lo, 1e-6) / 255.0
+    zp = int(np.clip(round(-128 - lo / scale), -128, 127))
+    return float(np.float32(scale)), zp
+
+
+class QuantGraph:
+    """A full-integer TFLite graph built op by op on a float mirror.
+
+    Each method adds one op (NHWC, batch 1 in the file) and returns its
+    output's name; `calibrate(x)` runs the float mirror on a batch and
+    records every tensor's range; `tflite()` returns the flatbuffer.
+    Tensors that TFLite requires to share quantization with their input
+    (RESHAPE, CONCATENATION, pools, PAD, TILE, STRIDED_SLICE,
+    RESIZE_NEAREST_NEIGHBOR) take the union range of the group; LOGISTIC
+    outputs 1/256 with zero point -128 and L2_NORMALIZATION 1/128 with 0,
+    as TFLite's int8 kernels require."""
+
+    def __init__(self, shape, dtype="uint8", qparams=(1 / 128, 128)):
+        self.nodes = [("input", "input", [], dict(dtype=dtype,
+                                                   q=qparams))]
+        self.shape = tuple(shape)
+        self.ranges = {}
+        self.shapes = {}
+        self.outputs = []
+        self.postprocess = None
+
+    def _add(self, kind, inputs, **attrs):
+        name = f"{kind}{len(self.nodes)}"
+        self.nodes.append((name, kind, list(inputs), attrs))
+        return name
+
+    # ---- ops ----
+    def quantize(self, x):
+        return self._add("quantize", [x])
+
+    def conv(self, x, k_hwio, bias=None, stride=1, act=0, padding=0,
+             depthwise=False):
+        """CONV_2D (k (kh, kw, Cin, Cout)) or DEPTHWISE_CONV_2D (k (kh, kw,
+        C)); act 0 none, 1 relu, 3 relu6; padding 0 SAME, 1 VALID."""
+        k = np.asarray(k_hwio, np.float32)
+        co = k.shape[-1]
+        b = np.zeros(co, np.float32) if bias is None else \
+            np.asarray(bias, np.float32)
+        return self._add("dw" if depthwise else "conv", [x], k=k, b=b,
+                         stride=stride, act=act, padding=padding,
+                         depth_multiplier=1)
+
+    def fc(self, x, w_io, bias=None, act=0):
+        w = np.asarray(w_io, np.float32)
+        b = np.zeros(w.shape[1], np.float32) if bias is None else \
+            np.asarray(bias, np.float32)
+        return self._add("fc", [x], w=w, b=b, act=act)
+
+    def binary(self, kind, x, y=None, const=None, act=0):
+        """ADD / SUB / MUL of two tensors, or of a tensor and a constant
+        (broadcast over the last axis)."""
+        c = None if const is None else np.asarray(const, np.float32)
+        return self._add(kind, [x] + ([y] if y is not None else []),
+                         const=c, act=act)
+
+    def affine(self, x, a, b):
+        """x * a + b per channel: a batch norm the converter keeps
+        standalone (MUL and ADD with constant operands)."""
+        return self.binary("add", self.binary("mul", x, const=a), const=b)
+
+    def unary(self, kind, x, **attrs):
+        """elu, logistic, l2norm, dequantize, softmax (beta 1)."""
+        if kind == "softmax":
+            attrs.setdefault("beta", 1.0)
+        return self._add(kind, [x], **attrs)
+
+    def pool(self, kind, x, k, stride, padding=1):
+        return self._add(kind, [x], k=k, stride=stride, padding=padding,
+                         act=0)
+
+    def reshape(self, x, shape):
+        return self._add("reshape", [x], shape=tuple(shape))
+
+    def concat(self, xs, axis):
+        return self._add("concat", list(xs), axis=axis)
+
+    def resize_nn(self, x, size, align_corners=0, half_pixel_centers=0):
+        return self._add("resize_nn", [x], size=tuple(size),
+                         align_corners=align_corners,
+                         half_pixel_centers=half_pixel_centers)
+
+    def pad(self, x, pads):
+        return self._add("pad", [x], pads=np.asarray(pads, np.int32))
+
+    def tile(self, x, multiples):
+        return self._add("tile", [x],
+                         multiples=np.asarray(multiples, np.int32))
+
+    def strided_slice(self, x, begin, end):
+        return self._add("slice", [x], begin=np.asarray(begin, np.int32),
+                         end=np.asarray(end, np.int32))
+
+    def detection_postprocess(self, boxes, scores, anchors, options):
+        self.postprocess = (boxes, scores,
+                            np.asarray(anchors, np.float32), options)
+
+    # ---- the float mirror ----
+    def _eval(self, kind, xs, at):
+        import torch
+        import torch.nn.functional as F
+        x = xs[0] if xs else None
+        if kind in ("quantize", "dequantize"):
+            return x
+        if kind in ("conv", "dw"):
+            k = torch.from_numpy(at["k"])
+            s = at["stride"]
+            kh, kw = k.shape[:2]
+            v = x.permute(0, 3, 1, 2)
+            if at["padding"] == 0:
+                (pt, pb), (pl, pr) = (_same_pads(v.shape[2], kh, s),
+                                      _same_pads(v.shape[3], kw, s))
+                v = F.pad(v, (pl, pr, pt, pb))
+            w = k.permute(2, 0, 1)[:, None] if kind == "dw" else \
+                k.permute(3, 2, 0, 1)
+            y = F.conv2d(v, w, torch.from_numpy(at["b"]), stride=s,
+                         groups=v.shape[1] if kind == "dw" else 1)
+            y = y.permute(0, 2, 3, 1)
+            return self._act(y, at["act"])
+        if kind == "fc":
+            y = x.reshape(x.shape[0], -1) @ torch.from_numpy(at["w"]) \
+                + torch.from_numpy(at["b"])
+            return self._act(y, at["act"])
+        if kind in ("add", "sub", "mul"):
+            y = xs[1] if len(xs) > 1 else torch.from_numpy(at["const"])
+            out = {"add": x + y, "sub": x - y, "mul": x * y}[kind]
+            return self._act(out, at["act"])
+        if kind == "elu":
+            return F.elu(x)
+        if kind == "logistic":
+            return torch.sigmoid(x)
+        if kind == "l2norm":
+            return x / torch.sqrt(torch.clamp((x * x).sum(-1, keepdim=True),
+                                              min=1e-12))
+        if kind == "softmax":
+            return torch.softmax(x, -1)
+        if kind in ("maxpool", "avgpool"):
+            k, s = at["k"], at["stride"]
+            v = x.permute(0, 3, 1, 2)
+            if at["padding"] == 0:
+                (pt, pb), (pl, pr) = (_same_pads(v.shape[2], k, s),
+                                      _same_pads(v.shape[3], k, s))
+            else:
+                pt = pb = pl = pr = 0
+            if kind == "maxpool":
+                y = F.max_pool2d(F.pad(v, (pl, pr, pt, pb),
+                                       value=float("-inf")), k, s)
+            else:
+                ones = torch.ones_like(v[:, :1])
+                y = F.avg_pool2d(F.pad(v, (pl, pr, pt, pb)), k, s) / \
+                    F.avg_pool2d(F.pad(ones, (pl, pr, pt, pb)), k, s)
+            return y.permute(0, 2, 3, 1)
+        if kind == "reshape":
+            return x.reshape((x.shape[0],) + at["shape"][1:])
+        if kind == "concat":
+            return torch.cat(xs, at["axis"])
+        if kind == "resize_nn":
+            rows = self._nn_index(x.shape[1], at["size"][0], at)
+            cols = self._nn_index(x.shape[2], at["size"][1], at)
+            return x[:, rows][:, :, cols]
+        if kind == "pad":
+            flat = [int(v) for pair in at["pads"][::-1] for v in pair]
+            return F.pad(x, flat)
+        if kind == "tile":
+            return x.repeat(*[int(m) for m in at["multiples"]])
+        if kind == "slice":
+            return x[tuple(slice(int(b), int(e))
+                           for b, e in zip(at["begin"], at["end"]))]
+        raise ValueError(kind)
+
+    @staticmethod
+    def _act(y, act):
+        import torch
+        if act == 1:
+            return torch.clamp(y, min=0.0)
+        if act == 3:
+            return torch.clamp(y, 0.0, 6.0)
+        return y
+
+    @staticmethod
+    def _nn_index(n_in, n_out, at):
+        i = np.arange(n_out, dtype=np.float64)
+        if at["half_pixel_centers"]:
+            return np.clip(np.floor((i + 0.5) * n_in / n_out).astype(int),
+                           0, n_in - 1)
+        if at["align_corners"] and n_out > 1:
+            return np.clip(np.round(i * (n_in - 1) / (n_out - 1))
+                           .astype(int), 0, n_in - 1)
+        return np.clip(np.floor(i * n_in / n_out).astype(int), 0, n_in - 1)
+
+    def calibrate(self, x):
+        """Run the float mirror on `x` (N, ...) float real values of the
+        input; widen every tensor's recorded range."""
+        import torch
+        vals = {"input": torch.as_tensor(x, dtype=torch.float32)}
+        with torch.no_grad():
+            for name, kind, ins, at in self.nodes[1:]:
+                vals[name] = self._eval(kind, [vals[i] for i in ins], at)
+        for name, v in vals.items():
+            lo, hi = float(v.min()), float(v.max())
+            old = self.ranges.get(name, (lo, hi))
+            self.ranges[name] = (min(lo, old[0]), max(hi, old[1]))
+            self.shapes[name] = (1,) + tuple(v.shape[1:])
+        return vals
+
+    # ---- the flatbuffer ----
+    def _qparams(self):
+        """Tensor name -> (scale, zero point), or None for float32. A
+        tied group takes the parameters of its fixed member (the input,
+        LOGISTIC, L2_NORMALIZATION) where it has one, else its union
+        range's."""
+        group = {n: n for n, _, _, _ in self.nodes}
+
+        def find(n):
+            while group[n] != n:
+                n = group[n]
+            return n
+        for name, kind, ins, _ in self.nodes:
+            if kind in _Q_TIED:
+                for i in ins:
+                    group[find(i)] = find(name)
+        span, fixed, floats = {}, {}, set()
+        in_at = self.nodes[0][3]
+        for name, kind, ins, at in self.nodes:
+            g = find(name)
+            r = self.ranges[name]
+            lo, hi = span.get(g, r)
+            span[g] = (min(lo, r[0]), max(hi, r[1]))
+            if kind == "input":
+                if at["dtype"] == "float32":
+                    floats.add(name)
+                else:
+                    fixed.setdefault(g, at["q"])
+            elif kind in ("dequantize", "softmax"):
+                floats.add(name)
+            elif kind == "quantize" and in_at["dtype"] == "uint8":
+                fixed.setdefault(g, (in_at["q"][0], in_at["q"][1] - 128))
+            elif kind == "logistic":
+                fixed.setdefault(g, (1.0 / 256, -128))
+            elif kind == "l2norm":
+                fixed.setdefault(g, (1.0 / 128, 0))
+        return {n: None if n in floats else
+                fixed.get(find(n)) or _affine_params(*span[find(n)])
+                for n, _, _, _ in self.nodes}
+
+    def tflite(self) -> bytes:
+        q = self._qparams()
+        tensors, buffers, operators, opcodes = [], [[(0, "u8v", b"")]], [], []
+        ids = {}
+
+        def buffer(arr):
+            buffers.append([(0, "u8v", np.ascontiguousarray(arr).tobytes())])
+            return len(buffers) - 1
+
+        def tensor(name, shape, ttype, data=None, scale=None, zp=None,
+                   qdim=0):
+            fields = [(0, "i32v", np.asarray(shape, np.int32)),
+                      (1, "i8", ttype), (3, "str", name.encode())]
+            if data is not None:
+                fields.append((2, "u32", buffer(data)))
+            if scale is not None:
+                scale = np.atleast_1d(np.asarray(scale, np.float32))
+                zp = np.zeros(scale.shape, np.int64) if zp is None else \
+                    np.broadcast_to(np.asarray(zp, np.int64), scale.shape)
+                fields.append((4, "table", [(2, "f32v", scale),
+                                            (3, "i64v", zp),
+                                            (6, "i32", qdim)]))
+            tensors.append(fields)
+            return len(tensors) - 1
+
+        def act_tensor(name):
+            if q[name] is None:
+                return tensor(name, self.shapes[name], 0)
+            return tensor(name, self.shapes[name], 9, scale=q[name][0],
+                          zp=q[name][1])
+
+        def int8_const(name, c):
+            c = np.asarray(c, np.float32)
+            s, z = _affine_params(c.min(), c.max())
+            data = np.clip(np.round(c / s) + z, -128, 127).astype(np.int8)
+            return tensor(name, c.shape, 9, data, s, z)
+
+        def i32_const(name, v):
+            v = np.asarray(v, np.int32)
+            return tensor(name, v.shape, 2, v)
+
+        def opcode(code, custom=None):
+            key = (code, custom)
+            if key not in opcodes:
+                opcodes.append(key)
+            return opcodes.index(key)
+
+        def operator(kind, ins, outs, at=None, custom=None, options=None):
+            fields = [(0, "u32", opcode(_Q_CODES[kind], custom)),
+                      (1, "i32v", np.asarray(ins, np.int32)),
+                      (2, "i32v", np.asarray(outs, np.int32))]
+            if kind in _Q_OPTIONS:
+                utype, spec = _Q_OPTIONS[kind]
+                table = [(slot, fk, (np.asarray(at[a], np.int32)
+                                     if fk == "i32v" else at[a]))
+                         for slot, fk, a in spec]
+                fields += [(3, "u8", utype), (4, "table", table)]
+            if options is not None:
+                fields += [(5, "u8v", options), (6, "i8", 0)]
+            operators.append(fields)
+
+        for name, kind, ins, at in self.nodes:
+            if kind == "input":
+                dt = {"uint8": 3, "int8": 9, "float32": 0}[at["dtype"]]
+                ids[name] = tensor(name, self.shape, dt,
+                                   **({} if q[name] is None else
+                                      dict(scale=q[name][0],
+                                           zp=q[name][1])))
+                continue
+            src = [ids[i] for i in ins]
+            out = act_tensor(name)
+            if kind in ("conv", "dw", "fc"):
+                s_in = q[ins[0]][0]
+                if kind == "fc":
+                    w = at["w"].T                              # (O, I)
+                    s_w = np.float32(max(np.abs(w).max(), 1e-8) / 127)
+                    w8 = np.clip(np.round(w / s_w), -127, 127)
+                    wt = tensor(f"{name}/weights", w.shape, 9,
+                                w8.astype(np.int8), s_w, 0)
+                    bscale = np.float32(np.float64(s_in) * s_w)
+                else:
+                    k = at["k"]                  # (kh, kw, Cin, Cout)
+                    s_w = np.maximum(np.abs(k).reshape(-1, k.shape[-1])
+                                     .max(0), 1e-8) / 127
+                    s_w = s_w.astype(np.float32)
+                    k8 = np.clip(np.round(k / s_w), -127, 127).astype(
+                        np.int8)
+                    if kind == "dw":             # (1, kh, kw, C), axis 3
+                        data = k8[None]
+                        qdim = 3
+                    else:                        # OHWI, axis 0
+                        data = np.transpose(k8, (3, 0, 1, 2))
+                        qdim = 0
+                    wt = tensor(f"{name}/weights", data.shape, 9, data,
+                                s_w, 0, qdim)
+                    bscale = (np.float64(s_in) * s_w.astype(np.float64)
+                              ).astype(np.float32)
+                b32 = np.round(at["b"] / bscale.astype(np.float64)).astype(
+                    np.int32)
+                bt = tensor(f"{name}/bias", b32.shape, 2, b32, bscale, 0,
+                            0)
+                operator(kind, src + [wt, bt], [out], at)
+            elif kind in ("add", "sub", "mul") and at["const"] is not None:
+                operator(kind, src + [int8_const(f"{name}/c", at["const"])],
+                         [out], at)
+            elif kind == "reshape":
+                at = dict(at, shape=self.shapes[name])
+                operator(kind, src + [i32_const(f"{name}/shape",
+                                                at["shape"])], [out], at)
+            elif kind == "resize_nn":
+                operator(kind, src + [i32_const(f"{name}/size",
+                                                at["size"])], [out], at)
+            elif kind == "pad":
+                operator(kind, src + [i32_const(f"{name}/pads",
+                                                at["pads"])], [out], at)
+            elif kind == "tile":
+                operator(kind, src + [i32_const(f"{name}/multiples",
+                                                at["multiples"])], [out], at)
+            elif kind == "slice":
+                operator(kind, src + [
+                    i32_const(f"{name}/begin", at["begin"]),
+                    i32_const(f"{name}/end", at["end"]),
+                    i32_const(f"{name}/strides", np.ones_like(at["begin"]))],
+                    [out], at)
+            else:
+                operator(kind, src, [out], at)
+            ids[name] = out
+        if self.postprocess is not None:
+            boxes, scores, anchors, options = self.postprocess
+            m = options["max_detections"]
+            outs = [tensor("TFLite_Detection_PostProcess" + s, shape, 0)
+                    for s, shape in (("", (1, m, 4)), (":1", (1, m)),
+                                     (":2", (1, m)), (":3", (1,)))]
+            operator("custom", [ids[boxes], ids[scores],
+                                tensor("anchors", anchors.shape, 0,
+                                       anchors)],
+                     outs, custom=b"TFLite_Detection_PostProcess",
+                     options=_flex_map(options))
+            outputs = outs
+        else:
+            outputs = [ids[n] for n in self.outputs]
+        codes = [[(0, "i8", min(code, 127)), (2, "i32", 1), (3, "i32", code)]
+                 + ([(1, "str", custom)] if custom else [])
+                 for code, custom in opcodes]
+        subgraph = [(0, "tables", tensors),
+                    (1, "i32v", np.asarray([ids["input"]], np.int32)),
+                    (2, "i32v", np.asarray(outputs, np.int32)),
+                    (3, "tables", operators)]
+        return _fb_serialize([(0, "u32", 3), (1, "tables", codes),
+                              (2, "tables", [subgraph]),
+                              (4, "tables", buffers)])
+
+
+def _bn_affine(bn):
+    """A port BatchNorm as per-channel (a, b), y = x * a + b."""
+    import torch
+    a = (bn.weight * torch.rsqrt(bn.running_var + bn.eps)).detach()
+    return a.numpy(), (bn.bias - bn.running_mean * a).detach().numpy()
+
+
+def _fold_bn(conv_w, bn):
+    """A port conv weight (O, I, kh, kw) with the batch norm after it
+    folded: (kernel (kh, kw, I, O), bias (O,))."""
+    a, b = _bn_affine(bn)
+    w = conv_w.detach().numpy() * a[:, None, None, None]
+    return np.transpose(w, (2, 3, 1, 0)), b
+
+
+def quantized_ssd_graph(ssd, size, calib, pp_options=None):
+    """A port SSDMobileNetV1 (float, on the CPU) as a full-integer graph at
+    input `size`: uint8 input (scale 1/128, zero point 128, the zoo
+    files'), QUANTIZE to int8, the backbone's CONV_2D / DEPTHWISE_CONV_2D
+    with folded batch norms and fused relu6, the extras, the 1x1 heads,
+    each RESHAPEd and CONCATENATed by kind, LOGISTIC on the class scores,
+    then (with `pp_options`) a TFLite_Detection_PostProcess op on the
+    generated anchors (raw int8 heads without it). `calib`: (N, size,
+    size, 3) raw pixels."""
+    from deepdish_tpu_torch.models.ssd_mobilenet import (_BACKBONE, _EXTRAS,
+                                                         generate_anchors)
+    g = QuantGraph((1, size, size, 3))
+    x = g.quantize("input")
+    k, b = _fold_bn(ssd.conv0.conv.weight, ssd.conv0.bn)
+    x = g.conv(x, k, b, stride=2, act=3)
+    feats = []
+    for i, (_, s) in enumerate(_BACKBONE):
+        blk = getattr(ssd, f"ds{i + 1}")
+        k, b = _fold_bn(blk.dw.weight, blk.dw_bn)
+        x = g.conv(x, k[:, :, 0], b, stride=s, act=3, depthwise=True)
+        k, b = _fold_bn(blk.pw.weight, blk.pw_bn)
+        x = g.conv(x, k, b, act=3)
+        if i == 10:
+            feats.append(x)
+    feats.append(x)
+    for i in range(len(_EXTRAS)):
+        for part, s in (("1x1", 1), ("3x3", 2)):
+            m = getattr(ssd, f"extra{i}_{part}")
+            k, b = _fold_bn(m.conv.weight, m.bn)
+            x = g.conv(x, k, b, stride=s, act=3)
+        feats.append(x)
+    boxes, scores = [], []
+    for lv, f in enumerate(feats):
+        for kind, out, width in (("box", boxes, 4),
+                                 ("cls", scores, ssd.num_classes + 1)):
+            m = getattr(ssd, f"{kind}_head{lv}")
+            h = g.conv(f, m.weight.detach().permute(2, 3, 1, 0).numpy(),
+                       m.bias.detach().numpy())
+            out.append(g.reshape(h, (1, -1, width)))
+    box_t, cls_t = g.concat(boxes, 1), g.concat(scores, 1)
+    if pp_options is not None:
+        # TFLite's postprocess op reads float (or uint8) inputs: the int8
+        # heads are dequantized, the scores after an in-graph LOGISTIC
+        g.detection_postprocess(
+            g.unary("dequantize", box_t),
+            g.unary("dequantize", g.unary("logistic", cls_t)),
+            generate_anchors(size), pp_options)
+    else:
+        g.outputs = [box_t, cls_t]
+    g.calibrate((np.asarray(calib, np.float32) - 128.0) / 128.0)
+    return g
+
+
+def quantized_mars_graph(mars, calib):
+    """A port MarsNet (float, on the CPU) as a full-integer graph: float
+    input, QUANTIZE (pixels at scale 1), CONV_2D with folded batch norms,
+    int8 ELU, MAX_POOL_2D 3x3/2 VALID, the residual blocks (standalone
+    pre-activation batch norms as MUL + ADD with constants, residual ADDs,
+    1x1/2 projections), RESHAPE, FULLY_CONNECTED with fc1_bn folded, ELU,
+    the `ball` batch norm as MUL + ADD, int8 L2_NORMALIZATION, DEQUANTIZE.
+    `calib`: (N, 128, 64, 3) raw pixels."""
+    g = QuantGraph((1, 128, 64, 3), dtype="float32")
+    x = g.quantize("input")
+    for conv, bn in (("conv1_1", "conv1_1_bn"), ("conv1_2", "conv1_2_bn")):
+        k, b = _fold_bn(getattr(mars, conv).weight, getattr(mars, bn))
+        x = g.unary("elu", g.conv(x, k, b))
+    x = g.pool("maxpool", x, 3, 2, padding=1)
+    for name in ("conv2_1", "conv2_3", "conv3_1", "conv3_3", "conv4_1",
+                 "conv4_3"):
+        blk = getattr(mars, name)
+        pre = x if blk.is_first else g.unary(
+            "elu", g.affine(x, *_bn_affine(blk.pre_bn)))
+        s = 2 if blk.increase_dim else 1
+        k, b = _fold_bn(blk.inner.conv1.weight, blk.inner.bn1)
+        y = g.unary("elu", g.conv(pre, k, b, stride=s))
+        c2 = blk.inner.conv2
+        y = g.conv(y, c2.weight.detach().permute(2, 3, 1, 0).numpy(),
+                   c2.bias.detach().numpy())
+        if blk.increase_dim:
+            short = g.conv(x, blk.projection.weight.detach()
+                           .permute(2, 3, 1, 0).numpy(), stride=2)
+        else:
+            short = x
+        x = g.binary("add", short, y)
+    x = g.reshape(x, (1, 16 * 8 * 128))
+    a, b = _bn_affine(mars.fc1_bn)
+    x = g.unary("elu", g.fc(x, mars.fc1.weight.detach().numpy().T * a, b))
+    x = g.affine(x, *_bn_affine(mars.ball))
+    g.outputs = [g.unary("dequantize", g.unary("l2norm", x))]
+    g.calibrate(calib)
+    return g
+
+
+def quantized_op_graphs(seed=SEED + 50):
+    """One small full-integer graph per op the YOLOv5 and EfficientDet
+    files use beyond the SSD's and MARS's: int8 input (1, 8, 8, 16) at
+    scale 0.05, zero point 3, the op, int8 (or, for SOFTMAX, float32)
+    output. Returns {op name: QuantGraph}, calibrated on seeded noise."""
+    rng = np.random.RandomState(seed)
+    x_real = (rng.randint(-128, 128, (4, 8, 8, 16)) - 3) * 0.05
+    const = rng.uniform(-2.0, 2.0, 16)
+    builds = {
+        "LOGISTIC": lambda g, x: g.unary("logistic", x),
+        "RESIZE_NEAREST_NEIGHBOR": lambda g, x: g.resize_nn(
+            x, (16, 12), half_pixel_centers=1),
+        "CONCATENATION": lambda g, x: g.concat(
+            [x, g.binary("mul", x, const=const)], 3),
+        "STRIDED_SLICE": lambda g, x: g.strided_slice(
+            x, (0, 1, 2, 0), (1, 7, 8, 16)),
+        "PAD": lambda g, x: g.pad(x, ((0, 0), (1, 2), (2, 1), (0, 0))),
+        "TILE": lambda g, x: g.tile(x, (1, 2, 3, 1)),
+        "AVERAGE_POOL_2D": lambda g, x: g.pool("avgpool", x, 3, 2,
+                                               padding=0),
+        "SUB": lambda g, x: g.binary("sub", x, const=const),
+        "MUL": lambda g, x: g.binary("mul", x, g.unary("logistic", x)),
+        "SOFTMAX": lambda g, x: g.unary("softmax",
+                                        g.unary("dequantize", x)),
+    }
+    graphs = {}
+    for op, build in builds.items():
+        g = QuantGraph((1, 8, 8, 16), dtype="int8", qparams=(0.05, 3))
+        g.outputs = [build(g, "input")]
+        g.calibrate(x_real)
+        graphs[op] = g
+    return graphs
+
+
+QUANT_CHUNK = 8            # the phase's batch and CLI chunk size
+QUANT_CLS_GAIN = 1000.0    # class-head gain of the written SSD
+
+
+def quant_ssd_donor():
+    """The CLI's default random SSD-MobileNetV1 (flax's draw, seed 0), its
+    class heads scaled by QUANT_CLS_GAIN: the random heads' logits are
+    ~1e-4, which the int8 LOGISTIC (steps of 1/256) would turn into ties;
+    scaled, the scores spread, in the float model's order (one positive
+    gain keeps every logit's rank, and the sigmoid is monotonic)."""
+    import torch
+    from deepdish_tpu_torch.models.layers import flax_default_init_
+    from deepdish_tpu_torch.models.ssd_mobilenet import SSDMobileNetV1
+    ssd = SSDMobileNetV1()
+    flax_default_init_(ssd, torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        for lv in range(6):
+            getattr(ssd, f"cls_head{lv}").weight.mul_(QUANT_CLS_GAIN)
+    return ssd
+
+
+@contextlib.contextmanager
+def _cpu_quantization():
+    """The w8a8 modes' post-training quantization (models/ssd_q.py
+    `quantize_ssd`, models/mars_q.py `quantize_mars`) computed once on the
+    CPU and reused by every run in the block, on the card and on the CPU:
+    a float32 card-vs-CPU CLI comparison then holds one quantization, not
+    two calibrations that differ in the last bits of float32 sums."""
+    from deepdish_tpu_torch.models import mars_q, ssd_q
+    saved = (ssd_q.quantize_ssd, mars_q.quantize_mars)
+    cache = {}
+
+    def key(params):
+        return tuple((k, float(v.double().sum()))
+                     for k, v in sorted(params.items()))
+
+    def cpu(params):
+        return {k: v.detach().cpu() for k, v in params.items()}
+
+    def ssd(params, quantize_dw=False, calib_images=None):
+        k = ("ssd", key(params), quantize_dw)
+        if k not in cache:
+            cache[k] = saved[0](cpu(params), quantize_dw, calib_images)
+        return cache[k]
+
+    def mars(params, calib_patches=None, compute_dtype=None):
+        k = ("mars", key(params), compute_dtype)
+        if k not in cache:
+            cache[k] = saved[1](cpu(params), calib_patches, compute_dtype)
+        return cache[k]
+    ssd_q.quantize_ssd, mars_q.quantize_mars = ssd, mars
+    try:
+        yield
+    finally:
+        ssd_q.quantize_ssd, mars_q.quantize_mars = saved
+
+
+def _env_card_vs_cpu(path, x, dev, impls=("auto", "portable")):
+    """Every tensor of the integer executor on the card (each conv_impl)
+    against the CPU executor's on the same input x (N, ...): integer
+    tensors equal, float32 ones (DEQUANTIZE) bit-equal, SOFTMAX's
+    probabilities within 5e-7 (exp of two libraries). Returns (ops,
+    problems, card ms of one apply per impl)."""
+    import torch
+    from deepdish_tpu_torch.models.qgraph import SOFTMAX, QGraphExecutor
+    host = QGraphExecutor(path, device="cpu")
+    want = host.apply(x, return_env=True)
+    problems, ms = [], {}
+    for impl in impls:
+        ex = QGraphExecutor(path, conv_impl=impl, device=dev)
+        xd = x.to(dev)
+        ex.apply(xd)
+        _sync(dev)
+        t0 = time.perf_counter()
+        env = ex.apply(xd, return_env=True)
+        _sync(dev)
+        ms[impl] = (time.perf_counter() - t0) * 1e3
+        for qop in ex.ops:
+            got = env[qop.outputs[0]].cpu()
+            ref = want[qop.outputs[0]]
+            if got.dtype != ref.dtype or got.shape != ref.shape:
+                problems.append(f"{impl} {qop.name}: {got.dtype} "
+                                f"{tuple(got.shape)} vs {ref.dtype} "
+                                f"{tuple(ref.shape)}")
+            elif qop.code == SOFTMAX:
+                if not torch.allclose(got, ref, rtol=0, atol=5e-7):
+                    problems.append(f"{impl} {qop.name}: softmax differs "
+                                    f"by {float((got - ref).abs().max())}")
+            elif not torch.equal(got, ref):
+                problems.append(f"{impl} {qop.name} (op {qop.code}): "
+                                f"{int((got != ref).sum())} elements differ")
+    return len(host.ops), problems, ms
+
+
+def _w8a8_card_vs_cpu(forward, qparams, strides, x, dev):
+    """A w8a8 forward (ssd_q.ssd_forward / mars_q.mars_forward) on the CPU
+    recording each layer's (int8 input, accumulator), then each layer's
+    contraction (stride `strides[path]`) on the card on the same int8
+    input: accumulators equal. Returns (layers, problems, the card
+    forward's outputs)."""
+    import torch
+    from deepdish_tpu_torch.models import mars_q, ssd_q
+    module = ssd_q if forward is ssd_q.ssd_forward else mars_q
+    qp_cpu = module.prepare_qparams(qparams, "cpu")
+    qp_dev = module.prepare_qparams(qparams, dev)
+    accs = {}
+    with torch.inference_mode():
+        forward(qp_cpu["base"], x, qparams=qp_cpu, acc_sink=accs)
+        problems = []
+        for path, (v8, acc) in accs.items():
+            w = qparams["wq"][path]
+            v8d = v8.to(dev)
+            if v8.dim() == 2:
+                got = mars_q.int8_matmul(v8d, qp_dev["wmat"][path],
+                                         w.shape[-1])
+            elif qparams.get("layers", {}).get(path, (0, 0, False))[2]:
+                got = ssd_q._dw_i8(v8d, qp_dev["wmat"][path], strides[path])
+            else:
+                got = mars_q.conv_i8(v8d, qp_dev["wmat"][path], w.shape[0],
+                                     w.shape[1], strides[path], w.shape[-1])
+            if path in qparams.get("corr", {}):
+                got = got + qp_dev["corr_t"][path]
+            if not torch.equal(got.cpu(), acc):
+                problems.append(f"{path}: {int((got.cpu() != acc).sum())} "
+                                "accumulators differ")
+        out = forward(qp_dev["base"], x.to(dev), qparams=qp_dev)
+    return len(accs), problems, out
+
+
+def _profile_chunk(fs, frames, dev, tag):
+    """torch.profiler over one run_chunk of the frames (after one warm-up
+    run): per frame, the device time of the integer contractions
+    (aten::_int_mm, the cuBLASLt int8 GEMM) and of the int32 depthwise
+    taps (the qgraph.depthwise range), the device's busy time and the
+    wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    state = fs.init_state()
+    state, _, _ = fs.run_chunk(state, frames)
+    _sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _, _ = fs.run_chunk(state, frames)
+        _sync(dev)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    n = len(frames)
+    by = {e.key: e for e in prof.key_averages()}
+    int_mm = by["aten::_int_mm"].device_time_total / n / 1e3 \
+        if "aten::_int_mm" in by else 0.0
+    calls = by["aten::_int_mm"].count / n if "aten::_int_mm" in by else 0
+    dw = by["qgraph.depthwise"].device_time_total / n / 1e3 \
+        if "qgraph.depthwise" in by else 0.0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and not e.is_user_annotation]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    log(f"[quantized] {tag}: run_chunk({n}) profiled: aten::_int_mm "
+        f"{int_mm:.3f} ms/frame device ({calls:.0f} calls/frame), "
+        f"int32 depthwise taps {dw:.3f} ms/frame device, device busy "
+        f"{busy_us / n / 1e3:.3f} of {wall_us / n / 1e3:.3f} ms/frame wall "
+        f"(idle share {1 - busy_us / max(wall_us, 1e-9):.3f}); top kernels: "
+        + "; ".join(f"{e.key[:40]} {e.self_device_time_total / n:.1f} us"
+                    for e in sorted(kernels, key=lambda e:
+                                    -e.self_device_time_total)[:4]))
+    return int_mm
+
+
+def phase_quantized(dev):
+    """The quantized paths at full width. Full-integer files written by the
+    script (`QuantGraph`), quantized on the walker scene: SSD-MobileNetV1
+    at 300 (91 classes, LOGISTIC and a TFLite_Detection_PostProcess op)
+    from `quant_ssd_donor` and MARS at 128x64 (int8 ELU, MAX_POOL_2D,
+    L2_NORMALIZATION) from a seeded donor with batch norms calibrated on
+    the scene, and one graph per op the YOLOv5 and EfficientDet files add;
+    every tensor of the integer executor on the card (the "mxu" form:
+    torch._int_mm, the "portable" form: float64, and for the SSD the
+    "xconv" form: a float64 direct convolution)
+    against the CPU executor's on QUANT_CHUNK inputs; the quantized SSD's
+    detections card vs CPU (`_compare_detections`); the w8a8 SSD (300) and
+    MARS (128x64) accumulators on the card against the CPU's on the same
+    int8 inputs, batch QUANT_CHUNK; the integer contractions' device time
+    per frame under the profiler; the CLI at --chunk-size 8 with
+    --quantized-inference on the two files and with --detector-int8
+    --encoder-model mars_int8 on the default random SSD (bf16: objd, e2e, host
+    syncs a frame, LSAP launches > 0), each also in float32 on the card and
+    on the CPU, whose counters must agree. Returns the LSAP launches of the
+    bf16 CLI runs."""
+    import tempfile
+
+    import torch
+    from deepdish_tpu_torch import device as devmod
+    from deepdish_tpu_torch.kernels import lsap
+    from deepdish_tpu_torch.models import (COCO_LABELS, create_box_encoder,
+                                           create_detector, mars_q, ssd_q)
+    from deepdish_tpu_torch.models.mars import INPUT_SHAPE, MarsNet
+    from deepdish_tpu_torch.models.preprocess import resize_bilinear_mxu
+    from deepdish_tpu_torch.models.ssd_mobilenet import INPUT_SIZE
+    t_phase = time.perf_counter()
+    n = QUANT_CHUNK
+    scene = np.ascontiguousarray(np.stack(
+        [_cli_scene(CLI_START + 3 * k) for k in range(n)])[..., ::-1])
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. the files, quantized on the scene
+        t0 = time.perf_counter()
+        ssd = quant_ssd_donor()
+        mars = MarsNet()
+        _calibrated_init(mars, torch.Generator().manual_seed(SEED + 1),
+                         _calibration_images(*INPUT_SHAPE[:2]))
+        resized = resize_bilinear_mxu(torch.from_numpy(scene), INPUT_SIZE,
+                                      INPUT_SIZE, torch.float32)
+        ssd_path = f"{tmp}/ssd_mobilenet_v1_coco_quant_postprocess.tflite"
+        mars_path = f"{tmp}/mars-little128_int8.tflite"
+        graphs = {ssd_path: quantized_ssd_graph(
+                      ssd, INPUT_SIZE, resized.numpy(), _ssd_pp_options()),
+                  mars_path: quantized_mars_graph(
+                      mars, _calibration_images(*INPUT_SHAPE[:2]).numpy())}
+        for op, g in quantized_op_graphs().items():
+            graphs[f"{tmp}/{op.lower()}_int8.tflite"] = g
+        for path, g in graphs.items():
+            with open(path, "wb") as f:
+                f.write(g.tflite())
+        log(f"[quantized] {len(graphs)} full-integer files calibrated and "
+            f"written in {time.perf_counter() - t0:.1f} s (SSD "
+            f"{len(open(ssd_path, 'rb').read()) / 2 ** 20:.1f} MiB, MARS "
+            f"{len(open(mars_path, 'rb').read()) / 2 ** 20:.1f} MiB)")
+
+        # 2. the executor on the card against the CPU, every tensor
+        x_ssd = torch.clamp(torch.floor(resized + 0.5), 0, 255).to(
+            torch.uint8)
+        patches = torch.cat([
+            _calibration_images(*INPUT_SHAPE[:2]),
+            torch.from_numpy(np.random.RandomState(SEED + 41).uniform(
+                0, 255, (n - 4,) + INPUT_SHAPE).astype(np.float32))])
+        x_op = torch.from_numpy(np.random.RandomState(SEED + 42).randint(
+            -128, 128, (n, 8, 8, 16)).astype(np.int8))
+        problems = []
+        for path in graphs:
+            x = x_ssd if path == ssd_path else patches \
+                if path == mars_path else x_op
+            impls = ("auto", "portable", "xconv") if path == ssd_path \
+                else ("auto", "portable")
+            t0 = time.perf_counter()
+            n_ops, bad, ms = _env_card_vs_cpu(path, x, dev, impls)
+            problems += bad
+            log(f"[quantized] executor card vs CPU "
+                f"{path.rsplit('/', 1)[1]}: {n_ops} ops, batch {len(x)}, "
+                f"{len(bad)} tensors differ; card ms per apply "
+                + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+                + f" ({time.perf_counter() - t0:.1f} s)")
+        if problems:
+            raise SystemExit(f"quantized: executor card vs CPU: "
+                             f"{problems[:8]}")
+
+        # 3. the quantized SSD's detections, card vs CPU
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            det = create_detector(ssd_path, quantized=True, device=d,
+                                  score_threshold=TFLITE_THRESHOLD)
+            raw = det.detect(resized.to(d), float(FRAME_W), float(FRAME_H))
+            outs.append([t.cpu().numpy() for t in raw])
+        report, serr, berr = [], 0.0, 0.0
+        for i in range(n):
+            p, se, be = _compare_detections(*([t[i] for t in o]
+                                              for o in outs))
+            report += [f"frame {i}: {m}" for m in p]
+            serr, berr = max(serr, se), max(berr, be)
+        n_valid = [int(v.sum()) for v in outs[1][3]]
+        log(f"[quantized] QuantizedSSDDetector card vs CPU on {n} resized "
+            f"720p frames, valid {n_valid}: {len(report)} problems, max "
+            f"|score| error {serr:.3e}, max box error {berr:.3e}")
+        if report or serr > 1e-6 or berr > 1e-5 or max(n_valid) <= 0:
+            raise SystemExit(f"quantized: detections card vs CPU "
+                             f"{report[:6]}")
+
+        # 4. w8a8 accumulators on the card against the CPU's
+        sd = {k: v.detach() for k, v in ssd.state_dict().items()}
+        t0 = time.perf_counter()
+        qp = ssd_q.quantize_ssd(sd, calib_images=resized.numpy())
+        layers, bad, _ = _w8a8_card_vs_cpu(
+            ssd_q.ssd_forward, qp,
+            {p: stride for p, (_, stride, _) in qp["layers"].items()},
+            resized, dev)
+        problems = bad
+        msd = {k: v.detach() for k, v in mars.state_dict().items()}
+        mqp = mars_q.quantize_mars(msd, patches.numpy())
+        strides = {p: 2 if p.startswith(("conv3_1", "conv4_1")) and
+                   not p.endswith("conv2") else 1
+                   for p in mars_q.QUANTIZED_LAYERS}
+        mlayers, bad, _ = _w8a8_card_vs_cpu(
+            mars_q.mars_forward, mqp, strides, patches, dev)
+        problems += bad
+        log(f"[quantized] w8a8 accumulators card vs CPU on the same int8 "
+            f"inputs, batch {n}: SSD 300 {layers} layers, MARS 128x64 "
+            f"{mlayers} layers, {len(problems)} differ "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if problems or layers != 33 or mlayers != 16:
+            raise SystemExit(f"quantized: w8a8 accumulators {problems[:6]}")
+
+        # 5. the integer contractions' device time per frame
+        frames = torch.from_numpy(scene).to(dev)
+        int_mm = {}
+        for tag, det, enc in (
+                ("--quantized-inference",
+                 create_detector(ssd_path, quantized=True, device=dev),
+                 create_box_encoder(mars_path, device=dev)),
+                ("--detector-int8 mars_int8",
+                 create_detector("ssd_mobilenet_int8", device=dev,
+                                 generator=torch.Generator().manual_seed(
+                                     SEED)),
+                 create_box_encoder("mars_int8", device=dev))):
+            fs = _framestep(dev, (FRAME_H, FRAME_W), detector=det,
+                            encoder=enc)
+            int_mm[tag] = _profile_chunk(fs, frames, dev, tag)
+            del fs, det, enc
+
+        # 6. the CLI on the card (bf16), then float32 card vs CPU
+        runs = {
+            "--quantized-inference": ["--quantized-inference", "--model",
+                                      ssd_path, "--encoder-model",
+                                      mars_path],
+            "--detector-int8 mars_int8": ["--detector-int8", "--model",
+                                          "ssd_mobilenet", "--encoder-model",
+                                          "mars_int8"]}
+        common = ["--input", "synthetic://walkers", "--disable-graphics",
+                  "--streaming", "0", "--control-port", "0",
+                  "--wanted-labels", ",".join(COCO_LABELS),
+                  "--score-threshold", str(TFLITE_THRESHOLD),
+                  "--chunk-size", str(QUANT_CHUNK)]
+        launches = 0
+        skip = 8
+        for tag, argv in runs.items():
+            lsap.launches = 0
+            devmod.host_syncs = 0
+            t0 = time.perf_counter()
+            pipe, timing, nf, bad = _run_cli(
+                common + argv + ["--device", dev.type, "--log",
+                                 f"{tmp}/q.log"], CLI_FRAMES)
+            syncs = devmod.host_syncs
+            launches += lsap.launches
+            det = pipe.framestep.detector
+            counters = {k: v for k, v in
+                        pipe.counting.counters_payload().items() if v}
+            log(f"[quantized] CLI 720p {tag} --chunk-size {QUANT_CHUNK} "
+                f"({type(det).__name__}, {det.compute_dtype}, bgsub on): "
+                f"{nf} frames in {time.perf_counter() - t0:.1f} s, objd "
+                f"{float(np.mean(timing['objd'][skip:])):.3f} ms/frame, e2e "
+                f"{float(np.mean(timing['e2e'][skip:])):.3f} ms/frame (mean "
+                f"over frames {skip + 1}-{nf}), {syncs / max(nf, 1):.2f} "
+                f"host syncs/frame, {lsap.launches} LSAP launches, {bad} "
+                f"frames with non-finite outputs; nonzero counters "
+                f"{counters}")
+            if nf != CLI_FRAMES or bad or lsap.launches <= 0:
+                raise SystemExit(f"quantized: CLI {tag}: {nf} frames, {bad} "
+                                 f"non-finite, {lsap.launches} launches")
+            del pipe, det
+            f32 = []
+            with _float32_models(), _cpu_quantization():
+                for d in (dev.type, "cpu"):
+                    t0 = time.perf_counter()
+                    # 8 crops a frame: the CPU's integer executor
+                    # keeps this comparison inside the phase's time
+                    pipe, _, nf, bad = _run_cli(
+                        common + argv + ["--device", d, "--encode-capacity",
+                                         "8", "--log", f"{tmp}/q32_{d}.log"],
+                        CLI_FRAMES)
+                    f32.append(pipe.counting.counters_payload())
+                    log(f"[quantized] CLI float32 {tag} on {d}: {nf} frames "
+                        f"in {time.perf_counter() - t0:.1f} s, counters "
+                        f"{ {k: v for k, v in f32[-1].items() if v} }")
+                    del pipe
+            if f32[0] != f32[1]:
+                raise SystemExit(f"quantized: CLI {tag} float32 counters "
+                                 f"card {f32[0]} vs CPU {f32[1]}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    log(f"[quantized] card: {smi.stdout.strip() or 'nvidia-smi: no output'}"
+        f"; integer contractions (aten::_int_mm) ms/frame: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in int_mm.items())
+        + f"; phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 12
+
 def phase_probe(dev):
     """The ported probe at full width through its entry point; returns the
     dsconv launches by stride, counted from 0 over this run only."""
@@ -2794,11 +3805,12 @@ def main() -> int:
     entry["launches"], _ = timed("slice", phase_slice, dev)
     timed("cli", phase_cli, dev)
     # the LSAP launches of the main path: the slice, the families, CVAT,
-    # Faster R-CNN and the tflite phase's CLI
+    # Faster R-CNN, the tflite phase's CLI and the quantized phase's CLIs
     entry["launches"] += timed("families", phase_families, dev)
     entry["launches"] += timed("cvat", phase_cvat, dev)
     entry["launches"] += timed("frcnn", phase_frcnn, dev)
     entry["launches"] += timed("tflite", phase_tflite, dev)
+    entry["launches"] += timed("quantized", phase_quantized, dev)
     by_stride = timed("probe", phase_probe, dev)
     for e, s in zip(ds_entries, (1, 2)):
         e["launches"] = by_stride[s]

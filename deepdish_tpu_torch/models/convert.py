@@ -1031,25 +1031,6 @@ def read_tflite_io_quant(model_path: str):
     return out
 
 
-def is_full_integer(model_path: str) -> bool:
-    """Whether a .tflite is a full-integer artifact, the kind the JAX
-    package's integer executor (models/qgraph.py QGraphExecutor) accepts:
-    the activation input of a weight-bearing op carries quantization (a
-    float or dynamic-range file's activations are float32)."""
-    model = tflite_meta.read_model(model_path)
-    for op in model.operators:
-        if model.opcodes[op.opcode_index].code not in (
-                CONV_2D, DEPTHWISE_CONV_2D, FULLY_CONNECTED) or \
-                not op.inputs or op.inputs[0] < 0:
-            continue
-        t = model.tensors[op.inputs[0]]
-        q = t.quantization
-        if q is not None and q.scale is not None and q.scale.size \
-                and _TENSOR_NP.get(t.type) in (np.int8, np.uint8):
-            return True
-    return False
-
-
 # ------------------------------------------------------------ postprocess op
 
 @dataclass

@@ -103,14 +103,16 @@ def create_box_encoder(model_name: str, state_dict=None, device=None,
                        **kw) -> EncoderSpec:
     """Filename-substring dispatch (generate_detections.py:180-189):
     'dummy', 'constant', else MARS. MARS weights load from a flat .npz of
-    the JAX package's variables (models/weights.py), a .tflite
-    (structural conversion), a frozen .pb or a TF checkpoint (name map;
-    these two need tensorflow), all through models/convert.py `load_mars`.
-    A full-integer .tflite, which the JAX package runs on its integer
-    datapath (models/qgraph.py), raises NotImplementedError until that is
-    ported (ROADMAP.md §1 item 8): it never runs on dequantized float
-    weights. A name that is no file gives random weights, as in the JAX
-    package."""
+    the JAX package's variables (models/weights.py), a .tflite, a frozen
+    .pb or a TF checkpoint (name map; these two need tensorflow). A
+    .tflite runs on the integer datapath of models/qgraph.py when it is a
+    full-integer file (the reference's quantized mars-little*.tflite,
+    generate_detections.py:151-177); a file the executor refuses
+    (NotImplementedError or ValueError: float and dynamic-range files)
+    converts structurally through models/convert.py `load_mars`, as in the
+    JAX package. A name with 'int8' or 'quant' runs the w8a8 encoder of
+    models/mars_q.py on those weights. A name that is no file gives random
+    weights, as in the JAX package."""
     name = model_name or ""
     if "dummy" in name:
         return make_dummy_encoder(device)
@@ -122,19 +124,25 @@ def create_box_encoder(model_name: str, state_dict=None, device=None,
                                        or name.endswith(".index"))
         if name.endswith(".npz") and os.path.exists(name):
             state_dict = w.mars_from_flax(w._flatten(w.load_npz(name)))
-        elif is_ckpt or (os.path.exists(name)
-                         and name.endswith((".pb", ".tflite"))):
-            from .convert import is_full_integer, load_mars
-            if name.endswith(".tflite") and is_full_integer(name):
-                raise NotImplementedError(
-                    f"{name} is a full-integer TFLite encoder, which the "
-                    "JAX package runs on its integer datapath "
-                    "(models/qgraph.py); that waits for a later slice of "
-                    "the port (ROADMAP.md §1 item 8). A float or "
-                    "dynamic-range .tflite converts.")
+        elif name.endswith(".tflite") and os.path.exists(name):
+            from .qgraph import make_quantized_mars_encoder
+            qkw = {k: v for k, v in kw.items() if k != "generator"}
+            try:
+                return make_quantized_mars_encoder(name, device=device, **qkw)
+            except (NotImplementedError, ValueError):
+                from .convert import load_mars
+                state_dict = w.mars_from_flax(load_mars(name)[0])
+        elif is_ckpt or (os.path.exists(name) and name.endswith(".pb")):
+            from .convert import load_mars
             state_dict = w.mars_from_flax(load_mars(name)[0])
         elif os.path.exists(name):
             raise ValueError(f"{name}: the port loads MARS weights from a "
                              ".npz of the JAX package's variables, a "
                              ".tflite, a frozen .pb or a TF checkpoint")
+    if "int8" in name or "quant" in name:
+        # the w8a8 serving mode (models/mars_q.py), the analog of the
+        # reference's quantized TFLite encoder files
+        from .mars_q import make_mars_int8_encoder
+        return make_mars_int8_encoder(state_dict=state_dict, device=device,
+                                      **kw)
     return make_mars_encoder(state_dict=state_dict, device=device, **kw)

@@ -1,5 +1,5 @@
 """Detector registry: deepdish_tpu/models/registry.py (`create_detector`
-:183) without the quantized paths, which are still to be ported.
+:183).
 
 The reference picks its detector backend by model-filename substring
 (deepdish.py:482-502). As in the JAX package, 'scripted:<name>' gives a
@@ -15,8 +15,10 @@ EfficientDet, the metadata's normalization and packed labels), a Keras .h5
 (YOLOv3), a SavedModel directory, a flat .npz of the JAX package's
 variables, or random init; a weight file that does not convert raises
 unless --allow-random-weights. `.pbtxt` label maps give 1-based ids.
-Still to be ported, and raising here: the quantized paths
-(--quantized-inference, --detector-int8; ROADMAP.md §1 item 8).
+The quantized paths: `quantized=True` (--quantized-inference) runs a
+full-integer .tflite (SSD / EdgeTPU, EfficientDet-Lite, YOLOv5 names) on
+the integer executor of models/qgraph.py; `detector_int8` (--detector-int8,
+or an 'int8' SSD name that is no file) the w8a8 SSD of models/ssd_q.py.
 """
 from __future__ import annotations
 
@@ -48,9 +50,6 @@ COCO_LABELS = [
     "oven", "toaster", "sink", "refrigerator", "book", "clock", "vase",
     "scissors", "teddy bear", "hair drier", "toothbrush",
 ]
-
-_LATER = "waits for a later slice of the port (ROADMAP.md §1)"
-
 
 def load_labels(label_file: Optional[str]) -> Sequence[str]:
     if label_file and os.path.exists(label_file):
@@ -284,6 +283,62 @@ def _saved_model_detector(model_dir, wanted_labels, label_file,
     return det
 
 
+def _quantized(model_name, label_file, score_threshold, max_outputs,
+               label_allow, label_deny, max_results, device, **kw):
+    """--quantized-inference: the full-integer .tflite on the integer
+    datapath (models/qgraph.py), the interpreter's own arithmetic, instead
+    of dequantized float weights (JAX registry.py:207-258): YOLOv5 names
+    on the YOLOv5 decode, SSD / EdgeTPU names and other (EfficientDet)
+    files on the box-coder decode, configured by a fused postprocess op
+    when the file has one."""
+    name = model_name.lower() if model_name else ""
+    if not (model_name and os.path.isfile(model_name)
+            and name.endswith(".tflite")):
+        raise ValueError(
+            "--quantized-inference needs an existing full-integer "
+            f".tflite artifact; got {model_name!r}")
+    common = dict(max_outputs=max_outputs, device=device, **kw)
+    if "yolov5" in name:
+        from .qgraph import QuantizedYOLOv5Detector
+        det = QuantizedYOLOv5Detector(
+            model_name, score_threshold=max(score_threshold, 0.25),
+            **common)
+        det.labels = dict(enumerate(load_labels(label_file)))
+        det.label_offset = 0
+        return det
+    if "yolo" in name:
+        raise NotImplementedError(
+            "--quantized-inference supports the SSD/EdgeTPU, EfficientDet "
+            f"and YOLOv5 families (got {model_name!r}); the float converter "
+            "handles YOLOv3 artifacts")
+    from . import convert as cvm
+    from .qgraph import QuantizedSSDDetector
+    is_effdet = not _is_ssd(name)
+    det_kw = dict(score_threshold=score_threshold,
+                  family="efficientdet" if is_effdet else "ssd",
+                  label_allow=label_allow, label_deny=label_deny,
+                  max_results=max_results)
+    pp = cvm.read_tflite_postprocess(model_name)
+    if pp is not None:
+        # the quantized decode works in normalized units for both families,
+        # so the op's normalized anchors pass unscaled; num_classes drives
+        # the background-column rule
+        det_kw.update(_pp_det_kw(pp, score_threshold),
+                      pp_num_classes=pp.num_classes)
+    det = QuantizedSSDDetector(model_name, **det_kw, **common)
+    labels = None
+    if is_effdet:
+        try:                     # packed metadata labels, like the float
+            from .tflite_meta import read_metadata          # branch
+            labels = read_metadata(model_name).get("labels")
+        except Exception:
+            pass
+    det.labels = dict(enumerate(labels or load_labels(label_file)))
+    det.label_offset = 0
+    det.finalize_label_filter()
+    return det
+
+
 def create_detector(model_name: str = "ssd_mobilenet", wanted_labels=None,
                     label_file=None, score_threshold: float = 0.5,
                     state_dict=None, max_outputs: int = 32,
@@ -303,10 +358,11 @@ def create_detector(model_name: str = "ssd_mobilenet", wanted_labels=None,
     configure the detector), or random init (`generator` and
     `compute_dtype` in **kw). A weight file that does not convert raises
     unless `allow_random_weights`. `label_allow`, `label_deny` and
-    `max_results` configure EfficientDet's result filter; `calib_images`
-    belongs to the int8 SSD, which is not ported yet. The quantized paths
-    raise NotImplementedError."""
-    del calib_images
+    `max_results` configure EfficientDet's result filter. `quantized`
+    runs a full-integer .tflite on the integer datapath (`_quantized`);
+    `detector_int8` (or an 'int8' SSD name that is no file) the w8a8 SSD,
+    its activations calibrated on `calib_images` ((N, H, W, 3) float
+    frames; default the synthetic set of models/ssd_q.py)."""
     name = (model_name or "ssd_mobilenet").lower()
     if "scripted" in name:
         key = name.split("scripted:", 1)[1] if "scripted:" in name else None
@@ -317,8 +373,10 @@ def create_detector(model_name: str = "ssd_mobilenet", wanted_labels=None,
                              " (use models.registry.register_script)")
         return ScriptedDetector(script, wanted_labels=wanted_labels)
     if quantized:
-        raise NotImplementedError(f"--quantized-inference {_LATER}, with "
-                                  "models/qgraph.py (item 8)")
+        kw.pop("generator", None)           # the file holds the weights
+        return _quantized(model_name, label_file, score_threshold,
+                          max_outputs, label_allow, label_deny, max_results,
+                          device, **kw)
     is_file = bool(model_name) and os.path.isfile(model_name)
     if model_name and os.path.isdir(model_name):
         if "saved_model" in name:
@@ -380,15 +438,21 @@ def create_detector(model_name: str = "ssd_mobilenet", wanted_labels=None,
                                         **common)
         labels = meta.get("labels")
     elif _is_ssd(name):
-        if detector_int8 or (not is_file and "int8" in name):
-            raise NotImplementedError(f"--detector-int8 {_LATER}, with "
-                                      "models/ssd_q.py (item 8)")
         det_kw = dict(score_threshold=score_threshold)
         if pp is not None:
             # (the op's fast NMS is class-agnostic; the pipeline's own
             # class-agnostic NMS, deepdish.py:995, covers that stage)
             det_kw.update(_pp_det_kw(pp, score_threshold))
-        det = SSDMobileNetDetector(**det_kw, **common)
+        if detector_int8 or (not is_file and "int8" in name):
+            # the w8a8 throughput mode (models/ssd_q.py): post-training
+            # quantization of whatever float weights were produced
+            # (including converted real files); distinct from the
+            # byte-exact --quantized-inference
+            from .ssd_q import SSDMobileNetInt8Detector
+            det = SSDMobileNetInt8Detector(calib_images=calib_images,
+                                           **det_kw, **common)
+        else:
+            det = SSDMobileNetDetector(**det_kw, **common)
     else:
         raise ValueError(
             f"cannot determine detector backend from {model_name!r}")

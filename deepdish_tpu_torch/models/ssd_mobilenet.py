@@ -259,13 +259,18 @@ class SSDMobileNetDetector:
         self.iou_threshold = iou_threshold
         self.labels = {}
 
+    def _apply_net(self, images_resized: torch.Tensor):
+        """(box encodings, class logits) of the network (the int8
+        subclass, models/ssd_q.py, replaces it)."""
+        return self.net(images_resized)
+
     def detect(self, images_resized: torch.Tensor, orig_w: float,
                orig_h: float):
         """(N, 300, 300, 3) float/uint8 -> fixed-capacity (boxes_xyxy
         (N, K, 4) in original pixels, classes (N, K) int32, scores (N, K),
         valid (N, K) bool), K = max_outputs."""
         with record_function("ssd.net"):
-            box_enc, logits = self.net(images_resized)
+            box_enc, logits = self._apply_net(images_resized)
         with record_function("ssd.decode_nms"):
             boxes = decode_boxes(box_enc, self.anchors, self.box_scale)
             probs = torch.sigmoid(logits)[..., 1:]      # strip background

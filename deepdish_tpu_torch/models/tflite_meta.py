@@ -19,13 +19,18 @@ schema numbers them (vtable offset 4 + 2 * slot):
   SubGraph: tensors 0, inputs 1, outputs 2, operators 3
   Tensor: shape 0, type 1 (byte), buffer 2 (uint), name 3, quantization 4
   Buffer: data 0
-  Operator: opcode_index 0 (uint), inputs 1, outputs 2, custom_options 5
+  Operator: opcode_index 0 (uint), inputs 1, outputs 2,
+            builtin_options_type 3 (ubyte), builtin_options 4 (table),
+            custom_options 5
   OperatorCode: deprecated_builtin_code 0 (byte), custom_code 1,
                 builtin_code 3 (int)
   QuantizationParameters: scale 2 (float), zero_point 3 (long),
                           quantized_dimension 6 (int)
   Metadata: name 0, buffer 1 (uint)
-and tensorflow/lite's metadata_schema.fbs for the metadata:
+and the builtin option tables the integer executor (models/qgraph.py)
+reads, in `OPTION_TABLES` (union type -> fields with slot, format and the
+schema's default: a field a writer left out reads as that default, e.g.
+a missing dilation factor is 1, not 0); and tensorflow/lite's metadata_schema.fbs for the metadata:
   ModelMetadata.subgraph_metadata = field 3
   SubGraphMetadata.input_tensor_metadata = field 2
   TensorMetadata.process_units = field 4, .associated_files = field 6
@@ -42,7 +47,7 @@ from __future__ import annotations
 import io
 import struct
 import zipfile
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -155,6 +160,65 @@ class Operator:
     inputs: List[int]
     outputs: List[int]
     custom_options: Optional[bytes]
+    builtin_options_type: int = 0    # BuiltinOptions union type, 0 = NONE
+    builtin_options: Dict[str, object] = field(default_factory=dict)
+
+
+# BuiltinOptions union type -> (table name, [(field, slot, struct format,
+# schema default)]), from tensorflow/lite/schema/schema.fbs. Padding and
+# ActivationFunctionType are byte enums (Padding: SAME 0, VALID 1).
+OPTION_TABLES = {
+    1: ("Conv2DOptions", [
+        ("padding", 0, "<b", 0), ("stride_w", 1, "<i", 0),
+        ("stride_h", 2, "<i", 0), ("fused_activation_function", 3, "<b", 0),
+        ("dilation_w_factor", 4, "<i", 1), ("dilation_h_factor", 5, "<i", 1),
+        ("quantized_bias_type", 6, "<b", 0)]),
+    2: ("DepthwiseConv2DOptions", [
+        ("padding", 0, "<b", 0), ("stride_w", 1, "<i", 0),
+        ("stride_h", 2, "<i", 0), ("depth_multiplier", 3, "<i", 0),
+        ("fused_activation_function", 4, "<b", 0),
+        ("dilation_w_factor", 5, "<i", 1), ("dilation_h_factor", 6, "<i", 1)]),
+    5: ("Pool2DOptions", [
+        ("padding", 0, "<b", 0), ("stride_w", 1, "<i", 0),
+        ("stride_h", 2, "<i", 0), ("filter_width", 3, "<i", 0),
+        ("filter_height", 4, "<i", 0),
+        ("fused_activation_function", 5, "<b", 0)]),
+    8: ("FullyConnectedOptions", [
+        ("fused_activation_function", 0, "<b", 0),
+        ("weights_format", 1, "<b", 0), ("keep_num_dims", 2, "<?", False),
+        ("asymmetric_quantize_inputs", 3, "<?", False),
+        ("quantized_bias_type", 4, "<b", 0)]),
+    9: ("SoftmaxOptions", [("beta", 0, "<f", 0.0)]),
+    10: ("ConcatenationOptions", [
+        ("axis", 0, "<i", 0), ("fused_activation_function", 1, "<b", 0)]),
+    11: ("AddOptions", [
+        ("fused_activation_function", 0, "<b", 0),
+        ("pot_scale_int16", 1, "<?", True)]),
+    21: ("MulOptions", [("fused_activation_function", 0, "<b", 0)]),
+    28: ("SubOptions", [
+        ("fused_activation_function", 0, "<b", 0),
+        ("pot_scale_int16", 1, "<?", True)]),
+    32: ("StridedSliceOptions", [
+        ("begin_mask", 0, "<i", 0), ("end_mask", 1, "<i", 0),
+        ("ellipsis_mask", 2, "<i", 0), ("new_axis_mask", 3, "<i", 0),
+        ("shrink_axis_mask", 4, "<i", 0), ("offset", 5, "<?", False)]),
+    74: ("ResizeNearestNeighborOptions", [
+        ("align_corners", 0, "<?", False),
+        ("half_pixel_centers", 1, "<?", False)]),
+}
+
+
+def read_options(kind: int, table: Optional[FBTable]) -> Dict[str, object]:
+    """The builtin options table of union type `kind` as {field: value},
+    each absent field at the schema's default; {} for a type not in
+    OPTION_TABLES (the executor reads no options of those ops)."""
+    spec = OPTION_TABLES.get(kind)
+    if spec is None:
+        return {}
+    if table is None:
+        return {name: default for name, _, _, default in spec[1]}
+    return {name: table.scalar(slot, fmt, default)
+            for name, slot, fmt, default in spec[1]}
 
 
 @dataclass
@@ -235,7 +299,10 @@ def _parse_model(buf: bytes) -> Model:
                for t in sg.vector_tables(0)]
     operators = [Operator(opcode_index=op.scalar(0, "<I", 0),
                           inputs=_ints(op, 1), outputs=_ints(op, 2),
-                          custom_options=op.raw_string(5))
+                          custom_options=op.raw_string(5),
+                          builtin_options_type=op.scalar(3, "<B", 0),
+                          builtin_options=read_options(
+                              op.scalar(3, "<B", 0), op.table(4)))
                  for op in sg.vector_tables(3)]
     return Model(opcodes, tensors, operators, _ints(sg, 1), _ints(sg, 2),
                  buffers, metadata)

@@ -283,3 +283,31 @@ def to_flax(module: nn.Module) -> Dict[str, np.ndarray]:
 def faster_rcnn_to_flax(module: nn.Module) -> Dict[str, np.ndarray]:
     """A FasterRCNNNet's weights as flat flax variables (float32)."""
     return _to_flax(module, FASTER_RCNN_NAMING, zeros=False)
+
+
+def _q_from_jax(qparams, base_from_flax) -> Dict:
+    """The JAX package's quantize_mars / quantize_ssd qparams -> the port's
+    (models/mars_q.py, models/ssd_q.py): the pruned float tree as a
+    state_dict (pruned kernels stay empty), and the int8 kernels (HWIO /
+    (in, out)), scales, activation scales and the 1x1 corrections as
+    numpy, keyed by the same flax paths."""
+    out = {"base": base_from_flax(_flatten(qparams["base"]))}
+    for k in ("wq", "wscale", "corr"):
+        if k in qparams:
+            out[k] = {p: np.asarray(v) for p, v in qparams[k].items()}
+    out["ascale"] = {p: np.float32(v) for p, v in qparams["ascale"].items()}
+    if "layers" in qparams:
+        out["layers"] = {p: tuple(v) for p, v in qparams["layers"].items()}
+    return out
+
+
+def mars_q_from_jax(qparams) -> Dict:
+    """deepdish_tpu.models.mars_q.quantize_mars output -> the port's
+    mars_q qparams (for `make_mars_int8_encoder(qparams=...)`)."""
+    return _q_from_jax(qparams, mars_from_flax)
+
+
+def ssd_q_from_jax(qparams) -> Dict:
+    """deepdish_tpu.models.ssd_q.quantize_ssd output -> the port's ssd_q
+    qparams (for `SSDMobileNetInt8Detector(qparams=...)`)."""
+    return _q_from_jax(qparams, ssd_from_flax)

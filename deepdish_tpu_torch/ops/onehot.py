@@ -38,8 +38,15 @@ def sort_values(keys: torch.Tensor) -> torch.Tensor:
 
 
 def topk_desc(scores: torch.Tensor, k: int):
-    """(values, indices) of the k largest, descending, ties -> lower index."""
+    """(values, indices) of the k largest, descending, ties -> lower index.
+    With k above the row length the JAX package's rank-matrix top-k gives
+    index 0 (and its score) in the slots past it; so does this."""
     vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    extra = k - scores.shape[-1]
+    if extra > 0:
+        idx = torch.cat([idx, idx.new_zeros(idx.shape[:-1] + (extra,))], -1)
+        vals = torch.cat([vals, scores[..., :1].expand(
+            scores.shape[:-1] + (extra,))], -1)
     return vals[..., :k], idx[..., :k]
 
 

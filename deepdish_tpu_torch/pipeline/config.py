@@ -90,10 +90,15 @@ def build_parser() -> argparse.ArgumentParser:
              'random-init weights instead of aborting')
     add('--quantized-inference', default=False, action='store_true',
         help='run a full-integer .tflite --model on the integer datapath '
-             '(not in the port yet: raises)')
+             '(the TFLite interpreter\'s integer arithmetic, byte-exact head '
+             'tensors) instead of dequantizing its weights to float; '
+             'SSD/EdgeTPU, EfficientDet and YOLOv5 artifacts')
     add('--detector-int8', default=False, action='store_true',
-        help='run the SSD-MobileNet detector convolutions in int8 '
-             '(not in the port yet: raises)')
+        help='run the SSD-MobileNet detector convolutions as exact int8 '
+             'contractions (fast w8a8 post-training mode, '
+             'models/ssd_q.py), the detector analog of --encoder-model '
+             'mars_int8; activation scales are calibrated on a synthetic '
+             'image set unless --detector-calibration-frames is given')
     add('--detector-calibration-frames', default=None,
         help='optional .npy of (N, H, W, 3) float frames for '
              '--detector-int8 activation calibration')

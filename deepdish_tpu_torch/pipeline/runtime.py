@@ -27,8 +27,6 @@ Differences from the JAX runtime:
     host between the two halves of the step (two device-to-host copies a
     frame, three on a frame with a track override), the reference's own
     ordering;
-  * --quantized-inference and --detector-int8 raise (a later slice of the
-    port);
   * the capture source is opened in one method, `_open_capture`
     (cv2.VideoCapture), which tests and chip_smoke.py replace with a numpy
     frame source; cv2 and PIL are imported only where a file or camera is
@@ -76,9 +74,6 @@ CAP_PROP_FRAME_WIDTH = 3
 CAP_PROP_FRAME_HEIGHT = 4
 CAP_PROP_FPS = 5
 CAP_PROP_BUFFERSIZE = 38
-
-_LATER = "waits for a later slice of the port (ROADMAP.md §1)"
-
 
 class MBox:
     """1-slot mutex mailbox (deepdish.py:79-93)."""
@@ -198,12 +193,6 @@ class Pipeline:
 
     def __init__(self, args):
         self.args = args
-        if getattr(args, 'quantized_inference', False):
-            raise NotImplementedError(
-                f"--quantized-inference {_LATER}, with models/qgraph.py")
-        if getattr(args, 'detector_int8', False):
-            raise NotImplementedError(
-                f"--detector-int8 {_LATER}, with models/ssd_q.py")
         # --device names a torch device; None means CUDA (raises without a
         # card) and --disable-edgetpu the CPU (deepdish.py:1397-1398)
         self.device = resolve_device(
@@ -226,6 +215,10 @@ class Pipeline:
             max_outputs=max(args.max_detections, 32),
             allow_random_weights=getattr(args, 'allow_random_weights',
                                          False),
+            quantized=getattr(args, 'quantized_inference', False),
+            detector_int8=getattr(args, 'detector_int8', False),
+            calib_images=self._load_calibration_frames(
+                getattr(args, 'detector_calibration_frames', None)),
             label_allow=_csv(getattr(args, 'label_allow_list', None)),
             label_deny=_csv(getattr(args, 'label_deny_list', None)),
             max_results=getattr(args, 'detector_max_results', -1),
@@ -412,6 +405,21 @@ class Pipeline:
         cv2.VideoCapture has."""
         import cv2
         return cv2.VideoCapture(source)
+
+    @staticmethod
+    def _load_calibration_frames(path):
+        """--detector-calibration-frames: (N, H, W, 3) float .npy of real
+        frames for the --detector-int8 activation calibration (None: the
+        synthetic set of models/ssd_q.py). A bad file fails loudly, as a
+        weight file does."""
+        if not path:
+            return None
+        frames = np.load(path)
+        if frames.ndim != 4 or frames.shape[-1] != 3:
+            raise ValueError(
+                f'--detector-calibration-frames {path!r}: expected '
+                f'(N, H, W, 3), got {frames.shape}')
+        return frames.astype(np.float32)
 
     def _init_camera(self):
         args = self.args

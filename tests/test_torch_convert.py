@@ -311,10 +311,12 @@ def test_mars_conversion_matches_jax(mars_donor):
 
 def test_mars_tflite_refused(tmp_path):
     """A MARS .tflite that is no flatbuffer fails to convert (never random
-    weights); a full-integer one (its conv's activation input quantized),
-    which the JAX package runs on its integer datapath, is refused until
-    that is ported."""
+    weights); a full-integer one (its conv's activation input quantized)
+    runs on the integer datapath (models/qgraph.py), as in the JAX
+    package: the features of both factories' encoders agree."""
     import chip_smoke
+    from deepdish_tpu.models.encoders import \
+        create_box_encoder as j_create_box_encoder
     from deepdish_tpu_torch.models import create_box_encoder
     path = tmp_path / "mars-small128.tflite"
     path.write_bytes(b"\0" * 16)
@@ -322,9 +324,10 @@ def test_mars_tflite_refused(tmp_path):
                  lambda: create_box_encoder(str(path), device="cpu")):
         with pytest.raises(ValueError, match="not a TFLite flatbuffer"):
             call()
-    kern = np.ones((4, 3, 3, 3), np.int8).tobytes()
+    kern = np.arange(-54, 54, dtype=np.int8).tobytes()
     quant = [(2, "f32v", np.array([0.5], np.float32)),
              (3, "i64v", np.array([0], np.int64))]
+    conv_options = [(0, "i8", 0), (1, "i32", 1), (2, "i32", 1)]
     blob = chip_smoke._fb_serialize([
         (0, "u32", 3),
         (1, "tables", [[(0, "i8", 3), (2, "i32", 1), (3, "i32", 3)]]),
@@ -335,17 +338,27 @@ def test_mars_tflite_refused(tmp_path):
                 [(0, "i32v", np.array([4, 3, 3, 3], np.int32)),
                  (1, "i8", 9), (2, "u32", 1), (3, "str", b"kernel"),
                  (4, "table", quant)],
-                [(1, "i8", 9), (3, "str", b"out"), (4, "table", quant)]]),
+                [(0, "i32v", np.array([1, 8, 8, 4], np.int32)),
+                 (1, "i8", 9), (3, "str", b"out"), (4, "table", quant)]]),
             (1, "i32v", np.array([0], np.int32)),
             (2, "i32v", np.array([2], np.int32)),
             (3, "tables", [[(0, "u32", 0),
                             (1, "i32v", np.array([0, 1], np.int32)),
-                            (2, "i32v", np.array([2], np.int32))]])]]),
+                            (2, "i32v", np.array([2], np.int32)),
+                            (3, "u8", 1), (4, "table", conv_options)]])]]),
         (4, "tables", [[(0, "u8v", b"")], [(0, "u8v", kern)]])])
     path.write_bytes(blob)
-    assert pcv.is_full_integer(str(path))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        create_box_encoder(str(path), device="cpu")
+    enc = create_box_encoder(str(path), device="cpu")
+    jenc = j_create_box_encoder(str(path))
+    assert enc.executor.ops[0].code == 3
+    assert enc.image_shape == jenc.image_shape == (8, 8, 3)
+    assert enc.feature_dim == jenc.feature_dim == 256
+    patches = np.random.RandomState(3).uniform(
+        -40, 40, (3, 8, 8, 3)).astype(np.float32)
+    with torch.inference_mode():
+        got = enc.apply(torch.from_numpy(patches)).numpy()
+    want = np.asarray(jenc.apply(jnp.asarray(patches)))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
 
 
 # ---------------------------------------------------------------- TensorFlow

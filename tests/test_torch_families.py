@@ -33,6 +33,7 @@ import torch
 
 import deepdish_tpu.models.registry as j_registry
 import deepdish_tpu_torch.models.registry as p_registry
+import deepdish_tpu_torch.models.ssd_q as p_ssd_q
 from deepdish_tpu.models import efficientdet as jed
 from deepdish_tpu.models import yolov3 as jy3
 from deepdish_tpu.models import yolov5 as jy5
@@ -337,8 +338,9 @@ class _Stub:
 def test_registry_dispatch(tmp_path, monkeypatch, pairs):
     """Names select families in the JAX package's order, keywords pass
     through, a weight file that does not convert raises the JAX package's
-    message (or runs on random weights with allow_random_weights), and
-    what is not ported yet raises."""
+    message (or runs on random weights with allow_random_weights), an
+    'int8' SSD name or detector_int8 selects the w8a8 SSD, and
+    --quantized-inference refuses a name that is no .tflite file."""
     for cls in ("YOLOv5Detector", "YOLOv3Detector",
                 "EfficientDetLite0Detector", "SSDMobileNetDetector",
                 "FasterRCNNDetector"):
@@ -367,8 +369,18 @@ def test_registry_dispatch(tmp_path, monkeypatch, pairs):
         assert create(name)[0] == "FasterRCNNDetector"
     assert create("faster_rcnn", score_threshold=0.4)[1].kw[
         "score_threshold"] == 0.4
-    with pytest.raises(NotImplementedError, match="later slice"):
-        create("ssd_mobilenet_int8")
+    # the int8 SSD: an 'int8' name that is no file, or detector_int8
+    monkeypatch.setattr(p_ssd_q, "SSDMobileNetInt8Detector",
+                        type("SSDMobileNetInt8Detector", (_Stub,), {}))
+    calib = np.zeros((1, 8, 8, 3), np.float32)
+    for name, kw in (("ssd_mobilenet_int8", {}),
+                     ("ssd_mobilenet", {"detector_int8": True})):
+        kind, det = create(name, calib_images=calib, **kw)
+        assert kind == "SSDMobileNetInt8Detector"
+        assert det.kw["calib_images"] is calib
+    # --quantized-inference needs a full-integer .tflite file
+    with pytest.raises(ValueError, match="full-integer"):
+        create("ssd_mobilenet", quantized=True)
     with pytest.raises(ValueError, match="backend"):
         create("resnet50")
     for fname in ("yolov5s.tflite", "yolo.h5", "ssd_frozen.pb"):

@@ -1,8 +1,9 @@
 """Tests of the port that need a CUDA card: the hand-written LSAP kernel
 against its plain version and scipy, the fused depthwise-separable kernel
-against its plain version, their wrappers' checks, and the tracker, the
+against its plain version, their wrappers' checks, the tracker, the
 MOG2 background subtraction and the frame step on the card against the
-CPU. They skip without a card, and
+CPU, and the quantized paths' exact integer contractions and executor on
+the card against the CPU. They skip without a card, and
 import nothing of JAX. On the GPU machine:
 
     python -m pytest -m gpu tests/test_torch_*.py
@@ -277,3 +278,39 @@ def test_dsconv_wrapper_refuses_what_the_kernel_cannot_take(cuda):
     with pytest.raises(ValueError):
         dsconv.fused(a[0].cpu(), *a[1:])
     assert dsconv.launches == before
+
+
+def test_exact_integer_contractions_on_the_card(cuda):
+    """The quantized paths' contractions: torch._int_mm (int8 weights
+    column-major, rows padded past 16, K and N padded to multiples of 8)
+    and the float64 matmul equal the CPU's exact products, at shapes that
+    need every padding."""
+    from deepdish_tpu_torch.models.qgraph import (int8_matmul, int8_weight,
+                                                  wide_matmul, wide_weight)
+    rng = np.random.RandomState(3)
+    for m, k, n in ((1, 3, 5), (16, 27, 32), (17, 288, 45), (300, 1024, 91)):
+        a = rng.randint(-128, 128, (m, k)).astype(np.int8)
+        w = rng.randint(-127, 128, (k, n)).astype(np.int8)
+        want = a.astype(np.int64) @ w.astype(np.int64)
+        got = int8_matmul(torch.from_numpy(a).to(cuda),
+                          int8_weight(w, cuda), n)
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+        aw = rng.randint(-255, 256, (m, k))
+        ww = rng.randint(-255, 256, (k, n))
+        got = wide_matmul(torch.from_numpy(aw).to(cuda), wide_weight(ww, cuda))
+        np.testing.assert_array_equal(got.cpu().numpy(), aw @ ww)
+
+
+def test_quantized_executor_card_matches_cpu(cuda, tmp_path):
+    """chip_smoke.py's per-op full-integer graphs through the integer
+    executor on the card (each conv_impl form) and on the CPU: every
+    tensor equal (SOFTMAX's probabilities within 5e-7)."""
+    import chip_smoke
+    x = torch.from_numpy(np.random.RandomState(4).randint(
+        -128, 128, (4, 8, 8, 16)).astype(np.int8))
+    for op, g in chip_smoke.quantized_op_graphs().items():
+        path = str(tmp_path / f"{op}.tflite")
+        with open(path, "wb") as f:
+            f.write(g.tflite())
+        _, problems, _ = chip_smoke._env_card_vs_cpu(path, x, cuda)
+        assert not problems, (op, problems)

@@ -43,6 +43,9 @@ def test_sources_found():
     assert os.path.join("deepdish_tpu_torch", "kernels", "lsap.py") in names
     assert os.path.join("deepdish_tpu_torch", "pipeline", "runtime.py") \
         in names
+    for module in (("models", "qgraph.py"), ("models", "mars_q.py"),
+                   ("models", "ssd_q.py"), ("ops", "intmath.py")):
+        assert os.path.join("deepdish_tpu_torch", *module) in names
     assert len(names) > 30
 
 
@@ -135,7 +138,11 @@ def test_import_pulls_no_jax():
             "deepdish_tpu_torch.models.tflite_meta, "
             "deepdish_tpu_torch.models.tflite_host, "
             "deepdish_tpu_torch.models.saved_model, "
-            "deepdish_tpu_torch.models.faster_rcnn\n"
+            "deepdish_tpu_torch.models.faster_rcnn, "
+            "deepdish_tpu_torch.models.qgraph, "
+            "deepdish_tpu_torch.models.mars_q, "
+            "deepdish_tpu_torch.models.ssd_q, "
+            "deepdish_tpu_torch.ops.intmath\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'deepdish_tpu', 'cv2', 'PIL', 'tensorflow', "
             "'h5py', 'flatbuffers')]\n"

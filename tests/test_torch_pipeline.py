@@ -282,12 +282,23 @@ def test_cli_needs_a_card_unless_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--quantized-inference"], ["--detector-int8"]],
+    ["--quantized-inference"],
+    ["--detector-int8", "--detector-calibration-frames", "missing.npy"]],
     ids=["quantized", "int8"])
 def test_cli_later_slices_raise(tmp_path, argv):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        asyncio.run(p_amain(["--input", str(tmp_path), "--device", "cpu",
-                             "--control-port", "0"] + argv))
+    """The quantized switches (ported in a later slice than the CLI) reach
+    the registry and fail as the JAX CLI does on what they are given: a
+    --model that is no full-integer .tflite, a calibration file that does
+    not exist."""
+    argv = [str(tmp_path / a) if a.endswith(".npy") else a for a in argv]
+    errors = []
+    for amain, extra in ((j_amain, []), (p_amain, ["--device", "cpu"])):
+        with pytest.raises((ValueError, FileNotFoundError)) as e:
+            asyncio.run(amain(["--input", str(tmp_path), "--control-port",
+                               "0", "--disable-graphics", "--streaming",
+                               "0"] + extra + argv))
+        errors.append((type(e.value), str(e.value)))
+    assert errors[1] == errors[0]
 
 
 def _actions(parser):

@@ -15,8 +15,8 @@ CPU (tests/test_torch_tflite_ssd.py's helpers and checks):
     and a dynamic-range .tflite (pre-activation batch norms as MUL + ADD):
     readers, slots, conversions, and the encoder of each factory (features
     within 2e-5, tests/test_torch_models' MARS tolerance); a full-integer
-    MARS (tests/mars_builder.py), which the JAX package runs on its integer
-    datapath, raises NotImplementedError naming ROADMAP item 8;
+    MARS (tests/mars_builder.py) runs on both packages' integer datapaths
+    with equal integer tensors;
   * the fold round trips of both and the strict failure (MARS, the
     tests/test_convert.py pattern), with no tensorflow;
   * `read_metadata` on tests/test_tflite_meta.py's tiny model with and
@@ -194,7 +194,15 @@ def test_mars_slots_match_jax():
 @pytest.mark.parametrize("kind", ["float", "dynamic", "full_int8"])
 def test_mars_readers_match_jax(mars_files, kind):
     same_readers(mars_files[kind])
-    assert pcv.is_full_integer(mars_files[kind]) == (kind == "full_int8")
+    # the integer executor takes the full-integer file and refuses the
+    # others (which then convert structurally)
+    from deepdish_tpu_torch.models.qgraph import QGraphExecutor
+    try:
+        QGraphExecutor(mars_files[kind], device="cpu")
+        accepted = True
+    except (NotImplementedError, ValueError):
+        accepted = False
+    assert accepted == (kind == "full_int8")
 
 
 @pytest.mark.parametrize("kind", ["float", "dynamic"])
@@ -221,10 +229,41 @@ def test_mars_conversion_and_encoder_match_jax(mars_files, jax_f32, kind):
 
 
 def test_mars_full_integer_raises(mars_files):
-    """The JAX package runs a full-integer MARS on its integer datapath;
-    the port refuses it rather than run dequantized float weights."""
-    with pytest.raises(NotImplementedError, match="item 8"):
-        create_box_encoder(mars_files["full_int8"], device="cpu")
+    """A full-integer MARS runs on the integer datapath in both packages
+    (never on dequantized float weights): the factory's encoder is the
+    executor's, every integer tensor equals the JAX executor's, the float
+    ELU islands within 2 ulp of 1 (expm1 of two libraries), and the
+    features are the JAX encoder's (its output, normalized)."""
+    import jax
+    from deepdish_tpu.models.qgraph import QGraphExecutor as JQ
+    path = mars_files["full_int8"]
+    enc = create_box_encoder(path, device="cpu")
+    jenc = j_encoders.create_box_encoder(path)
+    assert enc.feature_dim == jenc.feature_dim == 128
+    patches = np.random.RandomState(8).uniform(
+        0, 255, (2,) + INPUT_SHAPE).astype(np.float32)
+    ex = enc.executor
+    env = ex.apply(torch.from_numpy(patches), return_env=True)
+    jex = JQ(path, conv_impl="portable")
+    run = jax.jit(lambda c, x: jex.apply(c, x, return_env=True))
+    for r in range(len(patches)):
+        jenv = run(jex.consts, jnp.asarray(patches[r:r + 1]))
+        for qop in ex.ops:
+            got = env[qop.outputs[0]][r:r + 1].numpy()
+            want = np.asarray(jenv[qop.outputs[0]])
+            assert got.dtype == want.dtype, qop.name
+            if got.dtype == np.float32 and qop.code == 111:      # ELU
+                # expm1 in (-1, 0] of two libraries: within 2 ulp of 1
+                np.testing.assert_allclose(got, want, rtol=0,
+                                           atol=1.2e-7, err_msg=qop.name)
+            else:
+                np.testing.assert_array_equal(got, want, err_msg=qop.name)
+        # the JAX encoder's features: the dequantized output, normalized
+        out = np.asarray(jenv[jex.output_idxs[0]], np.float64).reshape(-1)
+        want = out / np.sqrt(1e-8 + np.sum(out * out))
+        with torch.inference_mode():
+            feats = enc.apply(torch.from_numpy(patches[r:r + 1])).numpy()
+        np.testing.assert_allclose(feats[0], want, atol=1e-6)
 
 
 def test_mars_fold_roundtrip_matches_jax():
