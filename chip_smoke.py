@@ -42,10 +42,14 @@ and reads JPEGs). Phases, each fatal on failure:
              countline scene, on the card (kernel) and on the CPU (plain):
              identical ids, states and matched_det on every frame, and the
              crossing counts the scene implies;
-  5. slice   FrameStep at 720p with random-init SSD-MobileNetV1 and MARS:
+  5. reference the slice on a small input (96x128, 6 frames) in float32 on
+             the card and on the CPU with the same weights, order-free per
+             frame (detections, track ids, tracks), the networks' raw
+             outputs within 1e-4 of their range;
+  6. slice   FrameStep at 720p with random-init SSD-MobileNetV1 and MARS:
              `step` over 16 frames, `run_chunk` over 8; the LSAP launch
              count is reset before and read after, and must be > 0;
-  6. cli     the port's CLI and what it adds under the frame step, at 720p
+  7. cli     the port's CLI and what it adds under the frame step, at 720p
              on a seeded walker scene (bright blocks on a dark background,
              crossing x = 640): MOG2 on the card against the CPU (mask
              agreement >= 0.999, identical motion decisions); FrameStep
@@ -63,7 +67,7 @@ and reads JPEGs). Phases, each fatal on failure:
              `--model scripted:bright` on the card (LSAP launches, reset
              before and read after, > 0) and on the CPU, whose counters
              must both equal the crossings the scene implies;
-  7. families YOLOv5s (320), YOLOv3 (416) and EfficientDet-Lite0 (320) at
+  8. families YOLOv5s (320), YOLOv3 (416) and EfficientDet-Lite0 (320) at
              full width, seeded random weights with calibrated batch norms
              (`_family_init`; FAMILY_THRESHOLD): float32 detector outputs
              on the card against the CPU port on two resized (YOLOv3:
@@ -72,13 +76,13 @@ and reads JPEGs). Phases, each fatal on failure:
              and `run_chunk` over 8 in bf16 (ms/frame, host syncs/frame,
              LSAP launches > 0); the CLI at --chunk-size 8 (every frame
              finite, objd and e2e);
-  8. cvat    CVAT split mode through the CLI: the walker scene as a JPEG
+  9. cvat    CVAT split mode through the CLI: the walker scene as a JPEG
              sequence with one annotated track, --input-cvat-dir and
              --output-cvat-dir; float32 with FrameStep.detect_only replaced
              by the bright-block script on the card and on the CPU (the
              two annotations.xml byte-identical, LSAP launches > 0), then
              the random SSD in bf16 on the card (LSAP launches > 0);
-  9. frcnn   Faster R-CNN at full width (FasterRCNNConfig(): ResNet-101
+ 10. frcnn   Faster R-CNN at full width (FasterRCNNConfig(): ResNet-101
              C4 at 640, 90 classes, pre_nms_topk 1024, 300 proposals),
              seeded weights with batch norms calibrated on the walker scene
              (`_frcnn_donor`): float32 on the card against the CPU port on
@@ -94,7 +98,7 @@ and reads JPEGs). Phases, each fatal on failure:
              stage split and idle share); the CLI on the weights as a .npz
              with a .pbtxt label map at --chunk-size 8 (every frame finite,
              objd and e2e);
- 10. tflite  the structural weight path on artifacts the script writes
+ 11. tflite  the structural weight path on artifacts the script writes
              itself with numpy (`write_tflite`; there is no tensorflow on
              the card's machine): a full-width SSD-MobileNetV1 (300, 91
              classes) whose box and class heads come in reverse level
@@ -109,7 +113,7 @@ and reads JPEGs). Phases, each fatal on failure:
              range) and MARS features within 1e-4; then the CLI with
              --model and --encoder-model on the two files at --chunk-size 8
              in bf16 (every frame finite, LSAP launches > 0, objd and e2e);
- 11. quantized  the quantized paths at full width, on full-integer
+ 12. quantized  the quantized paths at full width, on full-integer
              .tflite files the script writes itself (`QuantGraph`, numpy
              only, quantized on the walker scene): SSD-MobileNetV1 at 300
              with LOGISTIC and the postprocess op (`quant_ssd_donor`), MARS
@@ -126,13 +130,33 @@ and reads JPEGs). Phases, each fatal on failure:
              files and with --detector-int8 --encoder-model mars_int8 (bf16:
              objd, e2e, host syncs a frame, LSAP launches > 0), and each in
              float32 on the card and on the CPU, whose counters must agree;
- 12. probe   the ported dsconv probe (deepdish_tpu_torch.tools.probe_dsconv)
+ 13. parallel the parallel engines and the last tools: MultiStreamEngine
+             at bench.py's config 5 (16 streams of the walker scene at 720p,
+             each rolled 48 px further, step_chunk at chunk 8, calibrated
+             random SSD 300 + MARS in bf16, T = 64, D = 32, G = 64, labels
+             person and car, encode capacity 8, bgsub off): aggregate and
+             per-stream frames/s over 4 timed calls, host syncs a call, LSAP
+             launches (> 0), one call under torch.profiler (stage split,
+             idle share, top kernels); the same timing with every COCO
+             label wanted, which loads the trackers; in float32 with every
+             COCO label:
+             step_chunk at S = 4, F = 8 against each stream's run_chunk,
+             step against step_chunk(1), step_chunk_yuv against step_chunk
+             on the converted frames, S = 2, F = 4 card against CPU, the
+             temporal engine on [cuda] * 2 and the grid engine on a 2x2
+             mesh of the card against run_chunk (detections order-free
+             among scores tied to 1e-5, scores within 1e-4, boxes and
+             matched boxes within 1 px, track ids and states exact), both
+             engines' bgsub ValueError; then tools/multistream_demo (3
+             streams, --max-frames 8, through `open_loader`) and
+             tools/mot_features (card vs CPU features within 1e-4);
+ 14. probe   the ported dsconv probe (deepdish_tpu_torch.tools.probe_dsconv)
              at full width: batch 32, 6 layers, all 9 stages, 2 rounds of 4;
              the dsconv launch counts are reset before and read after, and
              both strides must have launched;
- 13. report  the `kernels` JSON line (the LSAP's launches: phases 5, 7, 8,
-             9, 10 and 11), the card's name and power limit, and as the last
-             line {"ok": true, "device": {...}}.
+ 15. report  the `kernels` JSON line (the LSAP's launches: phases 6, 8, 9,
+             10, 11, 12 and 13), the card's name and power limit, and as the
+             last line {"ok": true, "device": {...}}.
 
 Each phase prints its seconds.
 Exits non-zero, printing no result, when there is no card or the port is not
@@ -950,7 +974,7 @@ def phase_tracker(dev):
         raise SystemExit("tracker phase: the LSAP kernel never launched")
 
 
-# ---------------------------------------------------------------- phase 5
+# ---------------------------------------------------------------- phase 6
 
 def _framestep(dev, frame_shape, compute_dtype=None, step_cfg=None,
                detector=None, encoder=None):
@@ -1064,44 +1088,54 @@ STAGES = ("framestep.upload", "framestep.bgsub", "framestep.resize",
 
 
 def profile_step(fs, frames, dev, tag="slice", state=None, stages=STAGES):
-    """torch.profiler over plain `step` calls: per frame, each stage's
-    host time and device time from the record_function ranges FrameStep
-    places around its stages, and the device's busy share (CUDA kernel and
-    copy time over wall time; the profiler's own cost is in the wall)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    """torch.profiler over plain `step` calls (`_profiled`)."""
     if state is None:
         state = fs.init_state()
+
+    def run():
+        nonlocal state
+        for f in frames:
+            state, _, _, _ = fs.step(state, f)
+    _profiled(run, len(frames), dev, tag, "step", stages)
+
+
+def _profiled(fn, n, dev, tag, what, stages=STAGES):
+    """torch.profiler over fn(), which does n frames' work: per frame, each
+    stage's host time and device time from the record_function ranges
+    FrameStep places around its stages, and the device's busy share (CUDA
+    kernel and copy time over wall time; the profiler's own cost is in the
+    wall). Returns (host ms by stage, device ms by stage, idle share or
+    None)."""
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for f in frames:
-            state, _, _, _ = fs.step(state, f)
+        fn()
         _sync(dev)
         wall_us = (time.perf_counter() - t0) * 1e6
-    n = len(frames)
     host = dict.fromkeys(stages, 0.0)
     device = dict.fromkeys(stages, 0.0)
     for e in prof.events():
         if e.name in host and e.device_type.name == "CPU":
             host[e.name] += e.cpu_time_total / n / 1e3
             device[e.name] += e.device_time_total / n / 1e3
-    log(f"[{tag}] stage split of step (torch.profiler ranges, ms/frame "
+    log(f"[{tag}] stage split of {what} (torch.profiler ranges, ms/frame "
         "host / device): " + ", ".join(
             f"{k} {host[k]:.3f} / {device[k]:.3f}" for k in stages))
     kernels = [e for e in prof.key_averages()
                if e.device_type.name == "CUDA" and not e.is_user_annotation]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    if busy_us > 0:
-        log(f"[{tag}] profiler: device busy {busy_us / n:.1f} us/frame of "
-            f"{wall_us / n:.1f} us/frame wall (idle share "
-            f"{1 - busy_us / wall_us:.3f}); top kernels: " + "; ".join(
-                f"{e.key[:48]} {e.self_device_time_total / n:.1f} us"
-                for e in sorted(kernels,
-                                key=lambda e: -e.self_device_time_total)[:6]))
-    else:
+    if busy_us <= 0:
         log(f"[{tag}] profiler: no device time recorded (not measured)")
+        return host, device, None
+    log(f"[{tag}] profiler: device busy {busy_us / n:.1f} us/frame of "
+        f"{wall_us / n:.1f} us/frame wall (idle share "
+        f"{1 - busy_us / wall_us:.3f}); top kernels: " + "; ".join(
+            f"{e.key[:48]} {e.self_device_time_total / n:.1f} us"
+            for e in sorted(kernels,
+                            key=lambda e: -e.self_device_time_total)[:6]))
+    return host, device, 1 - busy_us / wall_us
 
 
 def phase_reference(dev):
@@ -1159,7 +1193,7 @@ def phase_reference(dev):
         raise SystemExit(f"reference check: network outputs differ {errs}")
 
 
-# ---------------------------------------------------------------- phase 6
+# ---------------------------------------------------------------- phase 7
 
 CLI_WALKERS = 6            # rows of bright blocks, alternating direction
 CLI_START = 20             # frames of empty background before they walk
@@ -1531,7 +1565,7 @@ def phase_cli(dev):
         raise SystemExit(f"cli: counters {counts}, expected {expected}")
 
 
-# ---------------------------------------------------------------- phase 7
+# ---------------------------------------------------------------- phase 8
 
 FAMILY_MODELS = ("yolov5s", "yolov3", "efficientdet-lite0")
 FAMILY_THRESHOLD = 0.3     # detector and pipeline score threshold
@@ -1788,7 +1822,7 @@ def phase_families(dev):
     return launches_total
 
 
-# ---------------------------------------------------------------- phase 8
+# ---------------------------------------------------------------- phase 9
 
 CVAT_FIRST, CVAT_FRAMES = CLI_START - 2, 28
 CVAT_WALKER = 1            # the annotated walker
@@ -1930,7 +1964,7 @@ def phase_cvat(dev):
     return launches_total
 
 
-# ---------------------------------------------------------------- phase 9
+# ---------------------------------------------------------------- phase 10
 
 FRCNN_THRESHOLD = 0.3      # detector and pipeline score threshold
 FRCNN_LOGIT_STD = (3.0, 4.0)   # RPN objectness, second-stage class logits
@@ -2290,7 +2324,7 @@ def phase_frcnn(dev):
     return launches + cli_launches
 
 
-# ---------------------------------------------------------------- phase 10
+# ---------------------------------------------------------------- phase 11
 
 # The tflite phase's artifacts: there is no tensorflow on the card's
 # machine, so the phase writes its own .tflite files, with numpy alone.
@@ -2756,7 +2790,7 @@ def phase_tflite(dev):
     return launches
 
 
-# ---------------------------------------------------------------- phase 11
+# ---------------------------------------------------------------- phase 12
 
 # The quantized phase's artifacts: full-integer .tflite files written with
 # numpy (no tensorflow on the card's machine). `QuantGraph` records an op
@@ -3736,7 +3770,379 @@ def phase_quantized(dev):
     return launches
 
 
-# ---------------------------------------------------------------- phase 12
+# ---------------------------------------------------------------- phase 13
+
+PAR_STREAMS = 16           # bench.py's config 5: 16 concurrent 720p streams
+PAR_CHUNK = 8              # frames a stream a call (bench.py --stream-chunk)
+PAR_TIMED = 4              # timed calls after the warm-up
+PAR_SHIFT = 48             # px: stream s is the walker scene rolled s * 48
+PAR_STAGES = ("framestep.upload", "framestep.resize", "ssd.net",
+              "ssd.decode_nms", "framestep.filter_nms",
+              "framestep.crop_mars", "framestep.tracker")
+
+
+def _stream_chunks(n_streams, n_calls):
+    """(n_calls, S, PAR_CHUNK, 720, 1280, 3) RGB uint8: stream s is the
+    walker scene from frame CLI_START on, rolled s * PAR_SHIFT px along x;
+    call c holds its frames c * PAR_CHUNK ... (c + 1) * PAR_CHUNK - 1."""
+    chunk = PAR_CHUNK
+    n = n_calls * chunk
+    scene = np.stack([_cli_scene(CLI_START + i)[..., ::-1]
+                      for i in range(n)])
+    out = np.empty((n_calls, n_streams, chunk) + scene.shape[1:], np.uint8)
+    for s in range(n_streams):
+        rolled = np.roll(scene, s * PAR_SHIFT, axis=2)
+        out[:, s] = rolled.reshape((n_calls, chunk) + scene.shape[1:])
+    return out
+
+
+def _par_donors():
+    """SSD-MobileNetV1 and MARS state dicts: seeded draws with batch norms
+    calibrated on the walker scene (`_calibrated_init`)."""
+    import torch
+    from deepdish_tpu_torch.models.mars import INPUT_SHAPE, MarsNet
+    from deepdish_tpu_torch.models.ssd_mobilenet import (INPUT_SIZE,
+                                                         SSDMobileNetV1)
+    ssd = SSDMobileNetV1()
+    _calibrated_init(ssd, torch.Generator().manual_seed(SEED),
+                     _calibration_images(INPUT_SIZE, INPUT_SIZE))
+    mars = MarsNet()
+    _calibrated_init(mars, torch.Generator().manual_seed(SEED + 1),
+                     _calibration_images(*INPUT_SHAPE[:2]))
+    return ({k: v.detach() for k, v in ssd.state_dict().items()},
+            {k: v.detach() for k, v in mars.state_dict().items()})
+
+
+def _par_framestep(dev, donors, dtype, wanted, num_labels, step_cfg=None):
+    """bench.py's config 5 FrameStep on the donors: SSD 300 (max_outputs
+    32) + MARS 128x64, T = 64, D = 32, G = 64, encode capacity 8, bgsub
+    off unless `step_cfg` says otherwise."""
+    from deepdish_tpu_torch import tracker as tt
+    from deepdish_tpu_torch.models import create_box_encoder, create_detector
+    from deepdish_tpu_torch.pipeline import FrameStep, FrameStepConfig
+    det = create_detector("ssd_mobilenet", state_dict=donors[0], device=dev,
+                          max_outputs=32, compute_dtype=dtype)
+    enc = create_box_encoder("mars", state_dict=donors[1], device=dev,
+                             compute_dtype=dtype)
+    cfg = tt.TrackerConfig(max_tracks=64, max_detections=32,
+                           gallery_size=64, num_labels=num_labels)
+    return FrameStep(det, enc, cfg, wanted, (FRAME_H, FRAME_W),
+                     step_cfg or FrameStepConfig(encode_capacity=8),
+                     device=dev)
+
+
+def _stream_problems(a, b, tag, box_px):
+    """One stream's (outs, snaps), each stacked on F, against another's:
+    per frame the detections order-free among scores tied to 1e-5
+    (`_compare_detections`), box coordinates within `box_px` pixels (a
+    truncation that float32 noise may flip moves a box by one), the track
+    ids and states exact, and each track's matched box within `box_px`.
+    Returns (problems, max score error, max box error in pixels)."""
+    import torch
+    problems, serr, berr = [], 0.0, 0.0
+    (oa, sa), (ob, sb) = a, b
+    for f in range(oa.track_id.shape[0]):
+        dets = [[t[f].cpu().numpy() for t in (s.tlwh, s.label, s.score,
+                                              s.valid)] for s in (sa, sb)]
+        p, se, be = _compare_detections(*dets)
+        scale = max(float(np.abs(dets[1][0][:int(dets[1][3].sum())])
+                          .max(initial=0)), 1.0)
+        serr, berr = max(serr, se), max(berr, be * scale)
+        problems += [f"{tag} frame {f}: {m}" for m in p]
+        for name in ("track_id", "state"):
+            if not torch.equal(getattr(oa, name)[f].cpu(),
+                               getattr(ob, name)[f].cpu()):
+                problems.append(f"{tag} frame {f}: {name} differ")
+        boxes = []
+        for o, s in ((oa, sa), (ob, sb)):
+            m = o.matched_det[f].long().cpu()
+            boxes.append(torch.where((m >= 0)[:, None],
+                                     s.tlwh[f].cpu()[m.clamp(min=0)], -1.0))
+        if float((boxes[0] - boxes[1]).abs().max()) > box_px:
+            problems.append(f"{tag} frame {f}: matched boxes differ")
+    if berr > box_px:
+        problems.append(f"{tag}: boxes differ by {berr} px")
+    return problems, serr, berr
+
+
+def _select(tree, s):
+    """Stream s of a NamedTuple stacked (S, ...)."""
+    return type(tree)(*(t[s] for t in tree))
+
+
+def _par_demo(dev):
+    """tools/multistream_demo.main at 720p on 3 streams of the walker scene
+    (`open_loader` replaced by an in-memory loader), --max-frames 8."""
+    from deepdish_tpu_torch.tools import multistream_demo
+
+    class SceneLoader:
+        def __init__(self, paths, width, height):
+            self.chunks = iter(_stream_chunks(len(paths), 1))
+
+        def next_chunk(self, chunk):
+            frames = next(self.chunks, None)
+            if frames is None:
+                return None, None, 0
+            counts = np.full((len(frames),), frames.shape[1], np.int32)
+            return frames, counts, int(counts.sum())
+
+        def close(self):
+            pass
+
+    saved = multistream_demo.open_loader
+    multistream_demo.open_loader = SceneLoader
+    try:
+        return multistream_demo.main(
+            ["--inputs", "walkers0", "walkers1", "walkers2",
+             "--max-frames", "8"])
+    finally:
+        multistream_demo.open_loader = saved
+
+
+def _par_mot(dev, mars_sd, tmp):
+    """tools/mot_features.extract_sequence on a three-frame synthetic MOT
+    sequence (JPEG frames of the walker scene, two boxes a frame) with the
+    calibrated MARS in float32, on the card and on the CPU. Returns (rows,
+    max feature difference)."""
+    import os
+
+    import cv2
+    import torch
+    from deepdish_tpu_torch.models import create_box_encoder
+    from deepdish_tpu_torch.tools import mot_features
+    seq = os.path.join(tmp, "SEQ-01")
+    os.makedirs(os.path.join(seq, "img1"))
+    os.makedirs(os.path.join(seq, "det"))
+    dets = []
+    for f in range(1, 4):
+        i = CLI_START + 4 * f
+        cv2.imwrite(os.path.join(seq, "img1", f"{f:06d}.jpg"), _cli_scene(i))
+        for k in (0, 1):
+            x, y = _cli_block(k, i)
+            dets.append([f, -1, x, y, 120, 90, 0.9, -1, -1, -1])
+    det_file = os.path.join(seq, "det", "det.txt")
+    np.savetxt(det_file, np.array(dets), delimiter=",")
+    outs = [mot_features.extract_sequence(
+        create_box_encoder("mars", state_dict=mars_sd, device=d,
+                           compute_dtype=torch.float32), seq, det_file)
+        for d in (dev, torch.device("cpu"))]
+    if not np.array_equal(outs[0][:, :10], outs[1][:, :10]):
+        raise SystemExit("parallel: mot_features rows differ card vs CPU")
+    return len(outs[0]), float(np.abs(outs[0][:, 10:] - outs[1][:, 10:])
+                               .max())
+
+
+def _par_timed(eng, chunks, dev, tag, profiled):
+    """The engine over chunks[0] (warm-up) and PAR_TIMED timed calls (host
+    clock, frames staged on the card): aggregate and per-stream frames/s,
+    host syncs a call, detections and LSAP launches (> 0); if `profiled`,
+    one more call under torch.profiler (whose parse of a call's events
+    takes tens of seconds). Returns the timed calls' LSAP launches."""
+    import torch
+    from deepdish_tpu_torch import device as devmod
+    from deepdish_tpu_torch.kernels import lsap
+    S, F = PAR_STREAMS, PAR_CHUNK
+    states = eng.init_states()
+    t0 = time.perf_counter()
+    states, outs, snaps = eng.step_chunk(states, chunks[0])
+    _sync(dev)
+    warm_s = time.perf_counter() - t0
+    lsap.launches = 0
+    devmod.host_syncs = 0
+    dets = []
+    t0 = time.perf_counter()
+    for c in chunks[1:PAR_TIMED + 1]:
+        states, outs, snaps = eng.step_chunk(states, c)
+        dets.append(snaps.valid.sum((0, 2)))
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    launches, syncs = lsap.launches, devmod.host_syncs / PAR_TIMED
+    agg = PAR_TIMED * S * F / secs
+    dets = torch.cat(dets).cpu().double() / S
+    _check_outputs(outs, snaps, 64, 32)
+    if tuple(outs.track_id.shape) != (S, F, 64):
+        raise SystemExit(f"parallel: outputs {tuple(outs.track_id.shape)}")
+    live = sum(int((st.table.state != 0).sum()) for st in states.streams)
+    log(f"[parallel] {tag}: MultiStreamEngine {S} streams x 720p, "
+        f"step_chunk({F}), {eng.fs.detector.compute_dtype}, mesh "
+        f"{eng.mesh}: warm-up call {warm_s:.1f} s; {PAR_TIMED} timed calls "
+        f"in {secs:.3f} s: aggregate {agg:.2f} frames/s, {agg / S:.3f} "
+        f"frames/s a stream, {secs / PAR_TIMED * 1e3:.1f} ms a call, "
+        f"{syncs:.1f} host syncs a call ({syncs / (S * F):.2f} a frame), "
+        f"{launches} LSAP launches ({launches / (PAR_TIMED * S * F):.2f} a "
+        f"frame); detections a stream-frame {float(dets.mean()):.2f} (frame "
+        f"means {float(dets.min()):.2f}-{float(dets.max()):.2f}); {live} "
+        f"live tracks at the end")
+    if launches <= 0:
+        raise SystemExit("parallel: the LSAP kernel never launched")
+    if not profiled:
+        return launches
+    t0 = time.perf_counter()
+    _profiled(lambda: eng.step_chunk(states, chunks[PAR_TIMED + 1]),
+              S * F, dev, "parallel",
+              f"one step_chunk({F}) call of {S} streams, {tag}", PAR_STAGES)
+    log(f"[parallel] {tag}: profiled call and its analysis "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase_parallel(dev):
+    """The parallel engines and the last tools on the card.
+
+    Full width (bench.py's config 5, bf16): MultiStreamEngine on a 1-card
+    mesh, 16 streams of the walker scene at 720p (stream s rolled s * 48
+    px), `step_chunk` at chunk 8, calibrated random SSD 300 + MARS,
+    T = 64, D = 32, G = 64, labels person and car, encode capacity 8, bgsub
+    off; aggregate and per-stream frames/s over PAR_TIMED calls after a
+    warm-up (host clock, frames staged on the card), host syncs a call,
+    LSAP launches (> 0), and one call under torch.profiler; the same,
+    unprofiled, with every COCO label wanted, which loads the trackers.
+    Then in
+    float32, every COCO label wanted: (a) step_chunk at S = 4, F = 8 equal
+    per stream to FrameStep.run_chunk on the card; (b) step equal to
+    step_chunk at F = 1; (c) step_chunk_yuv equal to step_chunk on the
+    converted frames; (d) S = 2, F = 4 on the card equal to the CPU; (e)
+    TemporalChunkEngine on [cuda] * 2 and GridEngine on a 2x2 mesh of the
+    card equal per stream to run_chunk; (f) both engines' bgsub
+    ValueError. Then multistream_demo (3 streams, --max-frames 8) and
+    mot_features (card vs CPU features within 1e-4). Returns the LSAP
+    launches of the full-width runs."""
+    import tempfile
+
+    import torch
+    from deepdish_tpu_torch.models import COCO_LABELS
+    from deepdish_tpu_torch.ops.colorspace import yuv420_to_rgb_u8
+    from deepdish_tpu_torch.parallel import (GridEngine, MultiStreamEngine,
+                                             TemporalChunkEngine,
+                                             make_grid_mesh, make_mesh)
+    from deepdish_tpu_torch.pipeline import FrameStepConfig
+    t_phase = time.perf_counter()
+    donors = _par_donors()
+
+    # 1. full width, bf16: bench.py's labels, then every COCO label (the
+    # random detector's classes are random: 2 of 80 wanted leave the
+    # trackers nearly idle)
+    t0 = time.perf_counter()
+    chunks = [torch.from_numpy(c).to(dev)
+              for c in _stream_chunks(PAR_STREAMS, PAR_TIMED + 2)]
+    _sync(dev)
+    log(f"[parallel] {len(chunks)} chunks of {PAR_STREAMS} x {PAR_CHUNK} "
+        f"720p frames staged on the card in {time.perf_counter() - t0:.1f} "
+        f"s ({chunks[0].numel() / 2 ** 20:.0f} MiB each)")
+    launches = 0
+    log(f"[parallel] donors calibrated, frames staged: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    for tag, wanted in (("person, car", ["person", "car"]),
+                        ("every COCO label", COCO_LABELS)):
+        fs = _par_framestep(dev, donors, None, wanted, max(4, len(wanted)))
+        eng = MultiStreamEngine(fs, n_streams=PAR_STREAMS, mesh=make_mesh(1))
+        launches += _par_timed(eng, chunks, dev, tag,
+                               profiled=len(wanted) == 2)
+    del chunks, eng, fs
+    torch.cuda.empty_cache()
+
+    # 2. float32 checks, every COCO label wanted
+    t0 = time.perf_counter()
+    n = len(COCO_LABELS)
+    fs = _par_framestep(dev, donors, torch.float32, COCO_LABELS, n)
+    frames = _stream_chunks(4, 1)[0]
+    problems, serr, berr = [], 0.0, 0.0
+
+    def held(tag, got, want, box_px):
+        nonlocal serr, berr
+        p, se, be = _stream_problems(got, want, tag, box_px)
+        problems.extend(p)
+        serr, berr = max(serr, se), max(berr, be)
+
+    eng = MultiStreamEngine(fs, n_streams=4, mesh=make_mesh(2, device=dev))
+    _, outs, snaps = eng.step_chunk(eng.init_states(), frames)
+    for s in range(4):                                         # (a)
+        _, o, sn = fs.run_chunk(fs.init_state(), frames[s])
+        held(f"(a) stream {s}", (_select(outs, s), _select(snaps, s)),
+             (o, sn), 1.0)
+    n_dets = [int(v) for v in snaps.valid.sum((1, 2)).cpu()]
+    st1 = eng.step(eng.init_states(), frames[:, 0])            # (b)
+    stc = eng.step_chunk(eng.init_states(), frames[:, :1])
+    same_b = all(torch.equal(a, b[:, 0]) for a, b in
+                 zip(st1[1] + st1[2], stc[1] + stc[2]))
+    yuv = np.stack([_to_i420(f) for f in frames])              # (c)
+    rgb = yuv420_to_rgb_u8(torch.from_numpy(yuv).to(dev), FRAME_H, FRAME_W)
+    ya = eng.step_chunk_yuv(eng.init_states(), yuv)
+    yb = eng.step_chunk(eng.init_states(), rgb)
+    same_c = all(torch.equal(a, b) for a, b in zip(ya[1] + ya[2],
+                                                   yb[1] + yb[2]))
+    if not (same_b and same_c):
+        problems.append(f"(b) step == step_chunk(1): {same_b}; (c) "
+                        f"step_chunk_yuv == step_chunk: {same_c}")
+    cpu = torch.device("cpu")                                  # (d)
+    fs_cpu = _par_framestep(cpu, donors, torch.float32, COCO_LABELS, n)
+    runs = []
+    for e in (MultiStreamEngine(fs, 2, make_mesh(2, device=dev)),
+              MultiStreamEngine(fs_cpu, 2, make_mesh(2, device=cpu))):
+        runs.append(e.step_chunk(e.init_states(), frames[:2, :4]))
+    for s in range(2):
+        held(f"(d) stream {s}", *((_select(r[1], s), _select(r[2], s))
+                                  for r in runs), 1.0)
+    te = TemporalChunkEngine(fs, mesh=make_mesh(2, "frame", device=dev))
+    _, o, sn = te.run_chunk(fs.init_state(), frames[0])        # (e)
+    held("(e) temporal", (o, sn), fs.run_chunk(fs.init_state(),
+                                               frames[0])[1:], 1.0)
+    ge = GridEngine(fs, 2, mesh=make_grid_mesh(2, 2, device=dev))
+    _, go, gsn = ge.run_chunk(ge.init_states(), frames[2:])
+    for s in range(2):
+        held(f"(e) grid stream {s}", (_select(go, s), _select(gsn, s)),
+             fs.run_chunk(fs.init_state(), frames[2 + s])[1:], 1.0)
+    bg = _par_framestep(dev, donors, torch.float32, COCO_LABELS, n,
+                        FrameStepConfig(encode_capacity=8,
+                                        background_subtraction=True))
+    for make in (lambda: TemporalChunkEngine(                   # (f)
+                     bg, mesh=make_mesh(2, "frame", device=dev)),
+                 lambda: GridEngine(bg, 2,
+                                    mesh=make_grid_mesh(2, 2, device=dev))):
+        try:
+            make()
+            problems.append("(f) an engine took a bgsub FrameStep")
+        except ValueError as e:
+            if "background" not in str(e):
+                problems.append(f"(f) {e}")
+    log(f"[parallel] float32 checks at 720p (every COCO label, detections "
+        f"a stream {n_dets} over {PAR_CHUNK} frames): (a) step_chunk S=4 F=8 vs "
+        f"run_chunk per stream, (b) step vs step_chunk(1) {same_b}, (c) "
+        f"step_chunk_yuv vs step_chunk {same_c}, (d) S=2 F=4 card vs CPU, "
+        f"(e) TemporalChunkEngine [cuda] * 2 and GridEngine 2x2 vs "
+        f"run_chunk, (f) bgsub refused: {len(problems)} problems, max "
+        f"|score| error {serr:.3e}, max box error {berr:.3f} px "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if problems or serr > 1e-4 or min(n_dets) <= 0:
+        raise SystemExit(f"parallel: {problems[:8]}")
+    del eng, fs, fs_cpu, te, ge, bg
+
+    # 3. the tools
+    t0 = time.perf_counter()
+    result = _par_demo(dev)
+    per = [{k: v for k, v in c.items() if v} for c in result["per_stream"]]
+    log(f"[parallel] multistream_demo 3 x 720p --max-frames 8: "
+        f"{result['frames']} frames, fps_aggregate {result['fps_aggregate']}"
+        f" (first call included), nonzero counters {per} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if result["streams"] != 3 or result["frames"] != 3 * PAR_CHUNK:
+        raise SystemExit(f"parallel: multistream_demo {result}")
+    with tempfile.TemporaryDirectory() as tmp:
+        rows, ferr = _par_mot(dev, donors[1], tmp)
+    log(f"[parallel] mot_features.extract_sequence, calibrated MARS "
+        f"float32: {rows} rows, card vs CPU features max difference "
+        f"{ferr:.3e}")
+    if rows != 6 or ferr > 1e-4:
+        raise SystemExit(f"parallel: mot_features {rows} rows, {ferr}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    log(f"[parallel] card: {smi.stdout.strip() or 'nvidia-smi: no output'}"
+        f"; phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 14
 
 def phase_probe(dev):
     """The ported probe at full width through its entry point; returns the
@@ -3805,12 +4211,14 @@ def main() -> int:
     entry["launches"], _ = timed("slice", phase_slice, dev)
     timed("cli", phase_cli, dev)
     # the LSAP launches of the main path: the slice, the families, CVAT,
-    # Faster R-CNN, the tflite phase's CLI and the quantized phase's CLIs
+    # Faster R-CNN, the tflite phase's CLI, the quantized phase's CLIs and
+    # the multi-stream engine at full width
     entry["launches"] += timed("families", phase_families, dev)
     entry["launches"] += timed("cvat", phase_cvat, dev)
     entry["launches"] += timed("frcnn", phase_frcnn, dev)
     entry["launches"] += timed("tflite", phase_tflite, dev)
     entry["launches"] += timed("quantized", phase_quantized, dev)
+    entry["launches"] += timed("parallel", phase_parallel, dev)
     by_stride = timed("probe", phase_probe, dev)
     for e, s in zip(ds_entries, (1, 2)):
         e["launches"] = by_stride[s]

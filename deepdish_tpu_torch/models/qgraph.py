@@ -289,6 +289,7 @@ class QGraphExecutor:
             qop = _QOp(code, self.meta[outs[0]].name, ins, outs)
             self._prepare(qop, op)
             self.ops.append(qop)
+        self._batch: Optional[int] = None     # apply's batch while it runs
 
     # ---- per-op host-side preparation (requant tables, layouts) ----
 
@@ -760,15 +761,21 @@ class QGraphExecutor:
                 return env[ti]
             return self._get_const(ti)
 
-        for qop in self.ops:
-            env[qop.outputs[0]] = self.run_op(qop, get)
+        self._batch = x.shape[0]
+        try:
+            for qop in self.ops:
+                env[qop.outputs[0]] = self.run_op(qop, get)
+        finally:
+            self._batch = None
         if return_env:
             return env
         return [env[t] for t in self.output_idxs]
 
-    @staticmethod
-    def _batch_free(qop, x, what: str, ok: bool):
-        if x.shape[0] != 1 and not ok:
+    def _batch_free(self, qop, x, what: str, ok: bool):
+        # the batch is apply's input's axis 0, not x's: a tensor reshaped
+        # to (-1, 4) at batch 1 may concatenate along axis 0
+        n = self._batch if self._batch is not None else x.shape[0]
+        if n != 1 and not ok:
             raise NotImplementedError(
                 f"{_OP_NAMES[qop.code]} {qop.name} {what} the batch axis; "
                 "this graph runs one frame at a time")

@@ -1,0 +1,1 @@
+from . import assignment, boxes, distance, geometry, kalman, nms  # noqa: F401

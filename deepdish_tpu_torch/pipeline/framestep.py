@@ -22,9 +22,11 @@ version:
     integer integral image of the MOG2 mask.
 
 `run_chunk` takes F frames: background subtraction steps through them in
-order (its state is temporal), the detector runs batched over the frames,
-MARS over all F * E crops at once, then the tracker steps through the frames
-in order. `run_chunk_yuv` takes I420 frames and converts them on the device
+order (its state is temporal; `_bgsub_frames`), the detector runs batched
+over the frames, MARS over all F * E crops at once
+(`_detect_encode_frames`), then the tracker steps through the frames in
+order (`_track_frames`). The parallel engines (parallel/) call the three
+pieces themselves, to batch detect + encode over several streams' frames. `run_chunk_yuv` takes I420 frames and converts them on the device
 first. `detect_only` and `encode_track` split `step` in two for CVAT
 mode, where the host merges annotations into the detections in between.
 
@@ -356,27 +358,40 @@ class FrameStep:
                                  valid=valid)
         return state, out, snap, dets
 
+    def _bgsub_frames(self, bg, frames: torch.Tensor):
+        """The chunk's background-subtraction prelude over (F, H, W, 3)
+        frames: the MOG2 state steps through them in order (it is
+        temporal). Returns (new MOG2 state or None, integral images
+        (F, H + 1, W + 1) or None, masked frames)."""
+        if not self.step_cfg.background_subtraction:
+            return bg, None, frames
+        ints, masked = [], []
+        for frame in frames:
+            bg, integral, frame = self._apply_bgsub(bg, frame)
+            ints.append(integral)
+            masked.append(frame)
+        return bg, torch.stack(ints), torch.stack(masked)
+
+    def _track_frames(self, state: PipelineState, bg, dets):
+        """The tracker over F frames' Detections (stacked on F), one frame
+        after the other. Returns (state with MOG2 state `bg`, outputs
+        stacked on F)."""
+        outs = []
+        for f in range(dets.valid.shape[0]):
+            state, out = self._track(state, bg,
+                                     tt.Detections(*(x[f] for x in dets)))
+            outs.append(out)
+        return state, _stack(outs)
+
     @torch.inference_mode()
     def run_chunk(self, state: PipelineState, frames_rgb):
         """F uint8 frames (F, H, W, 3). Returns (state, outputs stacked on
         F, snapshots stacked on F)."""
         frames = self._frames(frames_rgb)
-        bg, integrals = state.bg, None
-        if self.step_cfg.background_subtraction:
-            # the MOG2 state is temporal: one frame after the other
-            ints, masked = [], []
-            for frame in frames:
-                bg, integral, frame = self._apply_bgsub(bg, frame)
-                ints.append(integral)
-                masked.append(frame)
-            integrals, frames = torch.stack(ints), torch.stack(masked)
+        bg, integrals, frames = self._bgsub_frames(state.bg, frames)
         dets, snaps = self._detect_encode_frames(frames, integrals)
-        outs = []
-        for f in range(frames.shape[0]):
-            state, out = self._track(state, bg,
-                                     tt.Detections(*(x[f] for x in dets)))
-            outs.append(out)
-        return state, _stack(outs), snaps
+        state, outs = self._track_frames(state, bg, dets)
+        return state, outs, snaps
 
     @torch.inference_mode()
     def run_chunk_yuv(self, state: PipelineState, yuv_frames):

@@ -35,6 +35,7 @@ from deepdish_tpu_torch.pipeline import FrameStep as PFrameStep
 from deepdish_tpu_torch.pipeline import FrameStepConfig as PConfig
 from deepdish_tpu_torch.pipeline.counting import CountingState as PCounting
 from test_torch_models import numpy_flax_variables
+from test_torch_models import one_torch_thread  # noqa: F401 (autouse)
 
 F32 = jnp.float32
 H, W = 96, 128

@@ -314,3 +314,42 @@ def test_quantized_executor_card_matches_cpu(cuda, tmp_path):
             f.write(g.tflite())
         _, problems, _ = chip_smoke._env_card_vs_cpu(path, x, cuda)
         assert not problems, (op, problems)
+
+
+def test_multistream_engine_on_the_card(cuda):
+    """MultiStreamEngine.step_chunk, 4 streams over two shards of the one
+    card, each stream equal to its own FrameStep.run_chunk (integers
+    exact), the states on the card, and the LSAP kernel launched."""
+    from deepdish_tpu_torch import tracker as tt
+    from deepdish_tpu_torch.kernels import lsap
+    from deepdish_tpu_torch.models import (COCO_LABELS, create_box_encoder,
+                                           create_detector)
+    from deepdish_tpu_torch.parallel import MultiStreamEngine, make_mesh
+    from deepdish_tpu_torch.pipeline import FrameStep
+    det = create_detector("ssd_mobilenet", device=cuda,
+                          compute_dtype=torch.float32,
+                          generator=torch.Generator().manual_seed(0))
+    enc = create_box_encoder("mars", device=cuda, compute_dtype=torch.float32,
+                             generator=torch.Generator().manual_seed(1))
+    cfg = tt.TrackerConfig(max_tracks=16, max_detections=8,
+                           gallery_size=32, num_labels=len(COCO_LABELS))
+    fs = FrameStep(det, enc, cfg, COCO_LABELS, (96, 128), device=cuda)
+    rng = np.random.RandomState(3)
+    base = rng.randint(0, 256, (96, 128, 3))
+    frames = np.clip(base[None] + rng.randint(-4, 5, (4, 96, 128, 3)), 0,
+                     255).astype(np.uint8)
+    streams = np.stack([frames, frames[:, :, ::-1], np.roll(frames, 72, 2),
+                        frames[:, ::-1, ::-1]])
+    eng = MultiStreamEngine(fs, 4, make_mesh(2, device=cuda))
+    before = lsap.launches
+    states, outs, snaps = eng.step_chunk(eng.init_states(), streams)
+    torch.cuda.synchronize()
+    assert lsap.launches > before
+    for s in range(4):
+        assert states.stream(s).table.mean.device.type == "cuda"
+        _, o, sn = fs.run_chunk(fs.init_state(), streams[s])
+        for name in ("track_id", "state", "matched_det"):
+            np.testing.assert_array_equal(getattr(outs, name)[s].cpu().numpy(),
+                                          getattr(o, name).cpu().numpy())
+        np.testing.assert_array_equal(snaps.valid[s].cpu().numpy(),
+                                      sn.valid.cpu().numpy())

@@ -45,6 +45,19 @@ def numpy_flax_variables(net, example, seed):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side on one intra-op thread while a module runs (the
+    port's test files import this fixture): its convolutions at the tests'
+    sizes gain little from more threads, and under the tier-1 run's six
+    workers eight OpenMP threads each spin on oversubscribed cores (a
+    1.5 s engine call took 90 s there)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def ssd():
     net = jssd.SSDMobileNetV1(compute_dtype=F32)

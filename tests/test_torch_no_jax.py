@@ -1,11 +1,11 @@
 """The port stands alone: deepdish_tpu_torch and chip_smoke.py import no
 jax, no flax and nothing of deepdish_tpu, its entry points need a card
-unless the caller asks for the CPU, the CLI's modules and the host TFLite
-executor import cv2 and PIL only inside the functions that need them (the
-card's machine has neither), no module imports tensorflow or h5py outside
-a function (the weight readers need them only for the files they read),
-and none imports flatbuffers at all (the TFLite readers parse the files
-with numpy)."""
+unless the caller asks for the CPU, the CLI's modules, the host TFLite
+executor and the multi-stream and MOT tools import cv2 and PIL only inside
+the functions that need them (the card's machine has neither), no module
+imports tensorflow or h5py outside a function (the weight readers need
+them only for the files they read), and none imports flatbuffers at all
+(the TFLite readers parse the files with numpy)."""
 import ast
 import os
 import subprocess
@@ -22,7 +22,8 @@ _NO_TOP_LEVEL = ("cv2", "PIL")
 _HOST_LAZY = [os.path.join(PKG, *p) for p in (
     ("pipeline", "runtime.py"), ("pipeline", "elements.py"),
     ("pipeline", "mjpeg.py"), ("models", "registry.py"),
-    ("models", "tflite_host.py"))]
+    ("models", "tflite_host.py"), ("tools", "multistream_demo.py"),
+    ("tools", "mot_features.py"))]
 
 
 def _sources():
@@ -44,7 +45,11 @@ def test_sources_found():
     assert os.path.join("deepdish_tpu_torch", "pipeline", "runtime.py") \
         in names
     for module in (("models", "qgraph.py"), ("models", "mars_q.py"),
-                   ("models", "ssd_q.py"), ("ops", "intmath.py")):
+                   ("models", "ssd_q.py"), ("ops", "intmath.py"),
+                   ("parallel", "__init__.py"), ("parallel", "multistream.py"),
+                   ("parallel", "temporal.py"), ("parallel", "grid.py"),
+                   ("tools", "multistream_demo.py"),
+                   ("tools", "mot_features.py"), ("ops", "geometry.py")):
         assert os.path.join("deepdish_tpu_torch", *module) in names
     assert len(names) > 30
 
@@ -142,7 +147,10 @@ def test_import_pulls_no_jax():
             "deepdish_tpu_torch.models.qgraph, "
             "deepdish_tpu_torch.models.mars_q, "
             "deepdish_tpu_torch.models.ssd_q, "
-            "deepdish_tpu_torch.ops.intmath\n"
+            "deepdish_tpu_torch.ops.intmath, "
+            "deepdish_tpu_torch.ops.geometry, deepdish_tpu_torch.parallel, "
+            "deepdish_tpu_torch.tools.multistream_demo, "
+            "deepdish_tpu_torch.tools.mot_features\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'deepdish_tpu', 'cv2', 'PIL', 'tensorflow', "
             "'h5py', 'flatbuffers')]\n"
@@ -167,6 +175,7 @@ def test_entry_points_need_cuda_unless_cpu():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the CUDA defaults are valid here")
     from deepdish_tpu_torch.ops import bgsub
+    from deepdish_tpu_torch.parallel import make_grid_mesh, make_mesh
     for call in (lambda: create_detector("ssd_mobilenet"),
                  lambda: create_detector("yolov5s"),
                  lambda: create_detector("yolov3"),
@@ -177,6 +186,8 @@ def test_entry_points_need_cuda_unless_cpu():
                  lambda: create_box_encoder("dummy"),
                  lambda: pt.create_table(cfg),
                  lambda: FrameStep(det, enc, cfg, ["person"], (32, 48)),
+                 lambda: make_mesh(),
+                 lambda: make_grid_mesh(1, 1),
                  lambda: probe_dsconv.main([])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

@@ -51,6 +51,7 @@ from deepdish_tpu_torch.models import efficientdet as ped
 from deepdish_tpu_torch.models import mars as pmars
 from deepdish_tpu_torch.models import tflite_meta
 from deepdish_tpu_torch.models import weights as pw
+from test_torch_models import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_tflite_ssd import (bind_jax_trace, detector_matches,
                                    fold_roundtrip, image, jax_conversion,
                                    jax_trace, same_flat, same_readers,
