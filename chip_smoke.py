@@ -135,7 +135,8 @@ and reads JPEGs). Phases, each fatal on failure:
              each rolled 48 px further, step_chunk at chunk 8, calibrated
              random SSD 300 + MARS in bf16, T = 64, D = 32, G = 64, labels
              person and car, encode capacity 8, bgsub off): aggregate and
-             per-stream frames/s over 4 timed calls, host syncs a call, LSAP
+             per-stream frames/s over 5 timed calls (the median, min and
+             max of tools.bench.bench_streams), host syncs a frame, LSAP
              launches (> 0), one call under torch.profiler (stage split,
              idle share, top kernels); the same timing with every COCO
              label wanted, which loads the trackers; in float32 with every
@@ -154,9 +155,23 @@ and reads JPEGs). Phases, each fatal on failure:
              at full width: batch 32, 6 layers, all 9 stages, 2 rounds of 4;
              the dsconv launch counts are reset before and read after, and
              both strides must have launched;
- 15. report  the `kernels` JSON line (the LSAP's launches: phases 6, 8, 9,
-             10, 11, 12 and 13), the card's name and power limit, and as the
-             last line {"ok": true, "device": {...}}.
+ 15. bench   the port's measuring tools in process, at full width (720p,
+             phase 13's calibrated random SSD 300 + MARS (one calibration
+             serves both phases) in bf16, bench.py's
+             FrameStep: T = 64, D = 32, G = 64, labels person and car,
+             encode capacity 8), through their `main` with the FrameStep
+             given: deepdish_tpu_torch.tools.bench --latency (200 steps
+             resident and e2e), the chunked mode on synthetic I420 frames
+             (chunk 32, 160 frames, depth 2, 5 rounds of 2 resident calls)
+             and on an mp4 where the native frame loader builds (else a
+             line says what is missing), --streams 16 (config 5, 5 rounds
+             of one call) and, with the loader, --streams 16 --e2e; then
+             tools.profile_components (chunk 32, 5 reps): each prints its
+             JSON line; every number finite (timings positive), LSAP
+             launches > 0 in every bench mode;
+ 16. report  the `kernels` JSON line (the LSAP's launches: phases 6, 8, 9,
+             10, 11, 12, 13 and 15), the card's name and power limit, and as
+             the last line {"ok": true, "device": {...}}.
 
 Each phase prints its seconds.
 Exits non-zero, printing no result, when there is no card or the port is not
@@ -1100,42 +1115,19 @@ def profile_step(fs, frames, dev, tag="slice", state=None, stages=STAGES):
 
 
 def _profiled(fn, n, dev, tag, what, stages=STAGES):
-    """torch.profiler over fn(), which does n frames' work: per frame, each
-    stage's host time and device time from the record_function ranges
-    FrameStep places around its stages, and the device's busy share (CUDA
-    kernel and copy time over wall time; the profiler's own cost is in the
-    wall). Returns (host ms by stage, device ms by stage, idle share or
-    None)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        _sync(dev)
-        wall_us = (time.perf_counter() - t0) * 1e6
-    host = dict.fromkeys(stages, 0.0)
-    device = dict.fromkeys(stages, 0.0)
-    for e in prof.events():
-        if e.name in host and e.device_type.name == "CPU":
-            host[e.name] += e.cpu_time_total / n / 1e3
-            device[e.name] += e.device_time_total / n / 1e3
-    log(f"[{tag}] stage split of {what} (torch.profiler ranges, ms/frame "
-        "host / device): " + ", ".join(
-            f"{k} {host[k]:.3f} / {device[k]:.3f}" for k in stages))
-    kernels = [e for e in prof.key_averages()
-               if e.device_type.name == "CUDA" and not e.is_user_annotation]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    if busy_us <= 0:
-        log(f"[{tag}] profiler: no device time recorded (not measured)")
-        return host, device, None
-    log(f"[{tag}] profiler: device busy {busy_us / n:.1f} us/frame of "
-        f"{wall_us / n:.1f} us/frame wall (idle share "
-        f"{1 - busy_us / wall_us:.3f}); top kernels: " + "; ".join(
-            f"{e.key[:48]} {e.self_device_time_total / n:.1f} us"
-            for e in sorted(kernels,
-                            key=lambda e: -e.self_device_time_total)[:6]))
-    return host, device, 1 - busy_us / wall_us
+    """torch.profiler over fn(), which does n frames' work
+    (`tools.profile_components.profiled`): per frame, each stage's host
+    time and device time from the record_function ranges FrameStep places
+    around its stages, and the device's busy share (CUDA kernel and copy
+    time over wall time; the profiler's own cost is in the wall), logged
+    with the top six kernels. Returns (host ms by stage, device ms by
+    stage, idle share or None)."""
+    from deepdish_tpu_torch.tools.profile_components import (profiled,
+                                                             split_lines)
+    r = profiled(fn, n, dev, stages, top=6)
+    for line in split_lines(r, tag, what):
+        log(line)
+    return r["host_ms"], r["device_ms"], r["idle_share"]
 
 
 def phase_reference(dev):
@@ -3774,7 +3766,6 @@ def phase_quantized(dev):
 
 PAR_STREAMS = 16           # bench.py's config 5: 16 concurrent 720p streams
 PAR_CHUNK = 8              # frames a stream a call (bench.py --stream-chunk)
-PAR_TIMED = 4              # timed calls after the warm-up
 PAR_SHIFT = 48             # px: stream s is the walker scene rolled s * 48
 PAR_STAGES = ("framestep.upload", "framestep.resize", "ssd.net",
               "ssd.decode_nms", "framestep.filter_nms",
@@ -3933,52 +3924,41 @@ def _par_mot(dev, mars_sd, tmp):
 
 
 def _par_timed(eng, chunks, dev, tag, profiled):
-    """The engine over chunks[0] (warm-up) and PAR_TIMED timed calls (host
-    clock, frames staged on the card): aggregate and per-stream frames/s,
-    host syncs a call, detections and LSAP launches (> 0); if `profiled`,
-    one more call under torch.profiler (whose parse of a call's events
-    takes tens of seconds). Returns the timed calls' LSAP launches."""
-    import torch
-    from deepdish_tpu_torch import device as devmod
-    from deepdish_tpu_torch.kernels import lsap
+    """The engine through `tools.bench.bench_streams`: chunks[0] for the
+    warm-up, then bench.ROUNDS timed calls on chunks 1 ... ROUNDS (host
+    clock, frames staged on the card): aggregate and per-stream frames/s
+    (median, min and max of the calls), host syncs, detections and LSAP
+    launches (> 0) a frame; if `profiled`, one more call on the last chunk
+    under torch.profiler (whose parse of a call's events takes tens of
+    seconds). Returns the timed calls' LSAP launches."""
+    from deepdish_tpu_torch.tools import bench
     S, F = PAR_STREAMS, PAR_CHUNK
-    states = eng.init_states()
-    t0 = time.perf_counter()
-    states, outs, snaps = eng.step_chunk(states, chunks[0])
-    _sync(dev)
-    warm_s = time.perf_counter() - t0
-    lsap.launches = 0
-    devmod.host_syncs = 0
-    dets = []
-    t0 = time.perf_counter()
-    for c in chunks[1:PAR_TIMED + 1]:
-        states, outs, snaps = eng.step_chunk(states, c)
-        dets.append(snaps.valid.sum((0, 2)))
-    _sync(dev)
-    secs = time.perf_counter() - t0
-    launches, syncs = lsap.launches, devmod.host_syncs / PAR_TIMED
-    agg = PAR_TIMED * S * F / secs
-    dets = torch.cat(dets).cpu().double() / S
+    line, detail = bench.bench_streams(eng, chunks[:bench.ROUNDS + 1],
+                                       reps=1)
+    states, outs, snaps = detail["states"], detail["outs"], detail["snaps"]
+    launches = line["lsap_launches"]
     _check_outputs(outs, snaps, 64, 32)
     if tuple(outs.track_id.shape) != (S, F, 64):
         raise SystemExit(f"parallel: outputs {tuple(outs.track_id.shape)}")
     live = sum(int((st.table.state != 0).sum()) for st in states.streams)
     log(f"[parallel] {tag}: MultiStreamEngine {S} streams x 720p, "
         f"step_chunk({F}), {eng.fs.detector.compute_dtype}, mesh "
-        f"{eng.mesh}: warm-up call {warm_s:.1f} s; {PAR_TIMED} timed calls "
-        f"in {secs:.3f} s: aggregate {agg:.2f} frames/s, {agg / S:.3f} "
-        f"frames/s a stream, {secs / PAR_TIMED * 1e3:.1f} ms a call, "
-        f"{syncs:.1f} host syncs a call ({syncs / (S * F):.2f} a frame), "
-        f"{launches} LSAP launches ({launches / (PAR_TIMED * S * F):.2f} a "
-        f"frame); detections a stream-frame {float(dets.mean()):.2f} (frame "
-        f"means {float(dets.min()):.2f}-{float(dets.max()):.2f}); {live} "
+        f"{eng.mesh}: warm-up call {line['warmup_s']:.1f} s; "
+        f"{bench.ROUNDS} timed calls: aggregate {line['value']:.2f} "
+        f"frames/s (min {line['value_min']:.2f}, max "
+        f"{line['value_max']:.2f}), {line['per_stream_fps']:.3f} frames/s "
+        f"a stream, {line['ms_per_call']:.1f} ms a call, "
+        f"{line['host_syncs_per_frame'] * S * F:.1f} host syncs a call "
+        f"({line['host_syncs_per_frame']:.2f} a frame), {launches} LSAP "
+        f"launches ({line['lsap_launches_per_frame']:.2f} a frame); "
+        f"detections a stream-frame {line['dets_per_frame']:.2f}; {live} "
         f"live tracks at the end")
     if launches <= 0:
         raise SystemExit("parallel: the LSAP kernel never launched")
     if not profiled:
         return launches
     t0 = time.perf_counter()
-    _profiled(lambda: eng.step_chunk(states, chunks[PAR_TIMED + 1]),
+    _profiled(lambda: eng.step_chunk(states, chunks[bench.ROUNDS + 1]),
               S * F, dev, "parallel",
               f"one step_chunk({F}) call of {S} streams, {tag}", PAR_STAGES)
     log(f"[parallel] {tag}: profiled call and its analysis "
@@ -3986,14 +3966,14 @@ def _par_timed(eng, chunks, dev, tag, profiled):
     return launches
 
 
-def phase_parallel(dev):
+def phase_parallel(dev, donors):
     """The parallel engines and the last tools on the card.
 
     Full width (bench.py's config 5, bf16): MultiStreamEngine on a 1-card
     mesh, 16 streams of the walker scene at 720p (stream s rolled s * 48
     px), `step_chunk` at chunk 8, calibrated random SSD 300 + MARS,
     T = 64, D = 32, G = 64, labels person and car, encode capacity 8, bgsub
-    off; aggregate and per-stream frames/s over PAR_TIMED calls after a
+    off; aggregate and per-stream frames/s over bench.ROUNDS calls after a
     warm-up (host clock, frames staged on the card), host syncs a call,
     LSAP launches (> 0), and one call under torch.profiler; the same,
     unprofiled, with every COCO label wanted, which loads the trackers.
@@ -4005,8 +3985,8 @@ def phase_parallel(dev):
     TemporalChunkEngine on [cuda] * 2 and GridEngine on a 2x2 mesh of the
     card equal per stream to run_chunk; (f) both engines' bgsub
     ValueError. Then multistream_demo (3 streams, --max-frames 8) and
-    mot_features (card vs CPU features within 1e-4). Returns the LSAP
-    launches of the full-width runs."""
+    mot_features (card vs CPU features within 1e-4). `donors` are
+    `_par_donors()`. Returns the LSAP launches of the full-width runs."""
     import tempfile
 
     import torch
@@ -4016,21 +3996,21 @@ def phase_parallel(dev):
                                              TemporalChunkEngine,
                                              make_grid_mesh, make_mesh)
     from deepdish_tpu_torch.pipeline import FrameStepConfig
+    from deepdish_tpu_torch.tools import bench
     t_phase = time.perf_counter()
-    donors = _par_donors()
 
     # 1. full width, bf16: bench.py's labels, then every COCO label (the
     # random detector's classes are random: 2 of 80 wanted leave the
     # trackers nearly idle)
     t0 = time.perf_counter()
     chunks = [torch.from_numpy(c).to(dev)
-              for c in _stream_chunks(PAR_STREAMS, PAR_TIMED + 2)]
+              for c in _stream_chunks(PAR_STREAMS, bench.ROUNDS + 2)]
     _sync(dev)
     log(f"[parallel] {len(chunks)} chunks of {PAR_STREAMS} x {PAR_CHUNK} "
         f"720p frames staged on the card in {time.perf_counter() - t0:.1f} "
         f"s ({chunks[0].numel() / 2 ** 20:.0f} MiB each)")
     launches = 0
-    log(f"[parallel] donors calibrated, frames staged: "
+    log(f"[parallel] frames staged: "
         f"{time.perf_counter() - t_phase:.1f} s")
     for tag, wanted in (("person, car", ["person", "car"]),
                         ("every COCO label", COCO_LABELS)):
@@ -4172,6 +4152,105 @@ def phase_probe(dev):
     return by_stride
 
 
+# ---------------------------------------------------------------- phase 15
+
+BENCH_WANTED = ["person", "car"]   # bench.py's labels
+BENCH_STEPS = 200          # --latency samples a leg (bench.py's default)
+BENCH_CHUNK = 32           # the chunked mode's --chunk (bench.py's default)
+BENCH_FRAMES = 160         # the chunked mode's --frames: 5 chunks
+BENCH_REPS = 2             # chained calls a device-resident round
+BENCH_STREAMS = 16         # bench.py's config 5
+PROFILE_REPS = 5           # profile_components --reps
+# keys of a tool's JSON line whose numbers may be 0
+BENCH_ZERO_OK = ("encode_overflow_dets", "stage_host_ms_per_frame",
+                 "stage_device_ms_per_frame")
+
+
+def _bench_problems(line, key=None):
+    """The numbers of a tool's JSON line that are not finite, or not
+    positive where they must be (every number but those under
+    BENCH_ZERO_OK)."""
+    if isinstance(line, dict):
+        return [p for k, v in line.items()
+                for p in _bench_problems(v, key if key else k)]
+    if isinstance(line, (list, tuple)):
+        return [p for v in line for p in _bench_problems(v, key)]
+    if isinstance(line, bool) or not isinstance(line, (int, float)):
+        return []
+    if not np.isfinite(line) or (line < 0 or
+                                 (line == 0 and key not in BENCH_ZERO_OK)):
+        return [f"{key} = {line}"]
+    return []
+
+
+def phase_bench(dev, donors):
+    """The port's measuring tools in process at full width, bf16, on
+    bench.py's FrameStep with the calibrated random SSD 300 + MARS
+    (`_par_framestep`: T = 64, D = 32, G = 64, labels person and car,
+    encode capacity 8), each through its `main` with that FrameStep given:
+    tools.bench --latency, the chunked mode on synthetic frames and (where
+    the native frame loader builds) on an mp4, --streams 16 and (with the
+    loader) --streams 16 --e2e, then tools.profile_components. Each prints
+    its JSON line; every number must be finite (timings positive), and
+    every bench mode must have launched the LSAP kernel. Whether the
+    loader builds is checked before any run (`bench.loader_problem`).
+    `donors` are phase 13's `_par_donors()`. Returns the LSAP launches of
+    the runs."""
+    import tempfile
+
+    from deepdish_tpu_torch.kernels import lsap
+    from deepdish_tpu_torch.tools import bench, profile_components
+    t_phase = time.perf_counter()
+    fs = _par_framestep(dev, donors, None, BENCH_WANTED, 4)
+    chunked = ["--chunk", str(BENCH_CHUNK), "--frames", str(BENCH_FRAMES),
+               "--reps", str(BENCH_REPS)]
+    streams = ["--streams", str(BENCH_STREAMS), "--stream-chunk",
+               str(PAR_CHUNK), "--reps", "1"]
+    runs = [("latency", ["--latency", "--steps", str(BENCH_STEPS)]),
+            ("chunked, synthetic", chunked + ["--synthetic"]),
+            ("streams", streams)]
+    missing = bench.loader_problem()
+    if missing is None:
+        runs += [("chunked, mp4", chunked),
+                 ("streams, e2e", streams + ["--e2e", "--frames",
+                                             str(4 * PAR_CHUNK)])]
+    else:
+        log(f"[bench] the mp4 source is not run: {missing}")
+    launches, problems = 0, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, argv in runs:
+            t0 = time.perf_counter()
+            line = bench.main(argv + ["--video-dir", tmp],
+                              framestep=fs)
+            launches += line["lsap_launches"]
+            p = _bench_problems(line)
+            if line["lsap_launches"] <= 0:
+                p.append("the LSAP kernel never launched")
+            problems += [f"{tag}: {m}" for m in p]
+            log(f"[bench] {tag}: {time.perf_counter() - t0:.1f} s, "
+                f"{line['value']:.3f} {line['unit']}, "
+                f"{line['frames']} frames, "
+                f"{line['host_syncs_per_frame']:.2f} host syncs and "
+                f"{line['lsap_launches_per_frame']:.3f} LSAP launches a "
+                f"frame, {line['dets_per_frame']:.2f} detections a frame")
+    t0 = time.perf_counter()
+    lsap.launches = 0
+    line = profile_components.main(
+        ["--chunk", str(BENCH_CHUNK), "--reps", str(PROFILE_REPS)],
+        framestep=fs)
+    launches += lsap.launches
+    problems += [f"profile_components: {m}" for m in _bench_problems(line)]
+    if set(line["figures_ms_per_frame"]) != set(profile_components.FIGURES):
+        problems.append(f"profile_components: figures "
+                        f"{sorted(line['figures_ms_per_frame'])}")
+    log(f"[bench] profile_components: {time.perf_counter() - t0:.1f} s, "
+        f"{lsap.launches} LSAP launches; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if problems:
+        raise SystemExit(f"bench: {problems[:8]}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4211,15 +4290,17 @@ def main() -> int:
     entry["launches"], _ = timed("slice", phase_slice, dev)
     timed("cli", phase_cli, dev)
     # the LSAP launches of the main path: the slice, the families, CVAT,
-    # Faster R-CNN, the tflite phase's CLI, the quantized phase's CLIs and
-    # the multi-stream engine at full width
+    # Faster R-CNN, the tflite phase's CLI, the quantized phase's CLIs, the
+    # multi-stream engine at full width and the measuring tools
     entry["launches"] += timed("families", phase_families, dev)
     entry["launches"] += timed("cvat", phase_cvat, dev)
     entry["launches"] += timed("frcnn", phase_frcnn, dev)
     entry["launches"] += timed("tflite", phase_tflite, dev)
     entry["launches"] += timed("quantized", phase_quantized, dev)
-    entry["launches"] += timed("parallel", phase_parallel, dev)
+    donors = timed("donors", _par_donors)       # phases 13 and 15
+    entry["launches"] += timed("parallel", phase_parallel, dev, donors)
     by_stride = timed("probe", phase_probe, dev)
+    entry["launches"] += timed("bench", phase_bench, dev, donors)
     for e, s in zip(ds_entries, (1, 2)):
         e["launches"] = by_stride[s]
     log(json.dumps({"kernels": [entry] + ds_entries}))

@@ -44,6 +44,7 @@ from deepdish_tpu_torch.models import weights as pw
 from deepdish_tpu_torch.models import yolov3 as py3
 from deepdish_tpu_torch.models import yolov5 as py5
 from test_torch_models import numpy_flax_variables
+from test_torch_models import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_pipeline import (COMMON, RecordingMQTT, _compare, _frames,
                                  _last_counters, _texture_scene, _write_video,
                                  f32_jax, j_amain, p_amain)

@@ -44,6 +44,7 @@ from deepdish_tpu_torch.models.mars import INPUT_SHAPE, MarsNet
 from test_torch_pipeline import (COMMON, RecordingMQTT, _compare, _frames,
                                  _last_counters, _rect_scene, _write_video,
                                  f32_jax, j_amain, p_amain, weights)
+from test_torch_models import one_torch_thread  # noqa: F401 (autouse)
 
 __all__ = ["f32_jax", "weights"]   # fixtures used below
 

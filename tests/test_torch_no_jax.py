@@ -1,11 +1,11 @@
 """The port stands alone: deepdish_tpu_torch and chip_smoke.py import no
 jax, no flax and nothing of deepdish_tpu, its entry points need a card
 unless the caller asks for the CPU, the CLI's modules, the host TFLite
-executor and the multi-stream and MOT tools import cv2 and PIL only inside
-the functions that need them (the card's machine has neither), no module
-imports tensorflow or h5py outside a function (the weight readers need
-them only for the files they read), and none imports flatbuffers at all
-(the TFLite readers parse the files with numpy)."""
+executor and the multi-stream, MOT and measuring tools import cv2 and PIL
+only inside the functions that need them (the card's machine has
+neither), no module imports tensorflow or h5py outside a function (the
+weight readers need them only for the files they read), and none imports
+flatbuffers at all (the TFLite readers parse the files with numpy)."""
 import ast
 import os
 import subprocess
@@ -23,7 +23,8 @@ _HOST_LAZY = [os.path.join(PKG, *p) for p in (
     ("pipeline", "runtime.py"), ("pipeline", "elements.py"),
     ("pipeline", "mjpeg.py"), ("models", "registry.py"),
     ("models", "tflite_host.py"), ("tools", "multistream_demo.py"),
-    ("tools", "mot_features.py"))]
+    ("tools", "mot_features.py"), ("tools", "bench.py"),
+    ("tools", "profile_components.py"))]
 
 
 def _sources():
@@ -49,7 +50,8 @@ def test_sources_found():
                    ("parallel", "__init__.py"), ("parallel", "multistream.py"),
                    ("parallel", "temporal.py"), ("parallel", "grid.py"),
                    ("tools", "multistream_demo.py"),
-                   ("tools", "mot_features.py"), ("ops", "geometry.py")):
+                   ("tools", "mot_features.py"), ("ops", "geometry.py"),
+                   ("tools", "bench.py"), ("tools", "profile_components.py")):
         assert os.path.join("deepdish_tpu_torch", *module) in names
     assert len(names) > 30
 
@@ -150,7 +152,9 @@ def test_import_pulls_no_jax():
             "deepdish_tpu_torch.ops.intmath, "
             "deepdish_tpu_torch.ops.geometry, deepdish_tpu_torch.parallel, "
             "deepdish_tpu_torch.tools.multistream_demo, "
-            "deepdish_tpu_torch.tools.mot_features\n"
+            "deepdish_tpu_torch.tools.mot_features, "
+            "deepdish_tpu_torch.tools.bench, "
+            "deepdish_tpu_torch.tools.profile_components\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'deepdish_tpu', 'cv2', 'PIL', 'tensorflow', "
             "'h5py', 'flatbuffers')]\n"
@@ -165,7 +169,8 @@ def test_entry_points_need_cuda_unless_cpu():
     from deepdish_tpu_torch.models import (create_box_encoder,
                                            create_detector)
     from deepdish_tpu_torch.pipeline import FrameStep
-    from deepdish_tpu_torch.tools import probe_dsconv
+    from deepdish_tpu_torch.tools import bench, probe_dsconv
+    from deepdish_tpu_torch.tools import profile_components
     cfg = pt.TrackerConfig(max_tracks=4, max_detections=2, feature_dim=128,
                            gallery_size=8, pending_size=2)
     det = create_detector("ssd_mobilenet", device="cpu")
@@ -188,7 +193,11 @@ def test_entry_points_need_cuda_unless_cpu():
                  lambda: FrameStep(det, enc, cfg, ["person"], (32, 48)),
                  lambda: make_mesh(),
                  lambda: make_grid_mesh(1, 1),
-                 lambda: probe_dsconv.main([])):
+                 lambda: probe_dsconv.main([]),
+                 lambda: bench.main([]),
+                 lambda: bench.main(["--latency"]),
+                 lambda: bench.main(["--streams", "16"]),
+                 lambda: profile_components.main([])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 

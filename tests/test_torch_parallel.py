@@ -309,3 +309,54 @@ def test_replica_is_a_moved_copy(pair, frames):
     b = copy.run_chunk(copy.init_state(), frames[1])
     for x, y in zip(a[1] + a[2], b[1] + b[2]):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
+
+
+def bgsub_frames():
+    """(S, 16, H, W, 3): the module's 8 frames a stream twice over, with a
+    bright 30 x 24 block moving 6 px a frame along x, for MOG2 to see."""
+    frames = np.concatenate([stream_frames(8)] * 2, axis=1)
+    for k in range(frames.shape[1]):
+        x = 4 + 6 * k
+        frames[:, k, 20:50, x:x + 24] = 230
+    return frames
+
+
+@pytest.mark.timeout(600)
+def test_engine_with_bgsub_matches_jax_and_run_chunk(pair):
+    """Background subtraction on (each stream's MOG2 prelude, in frame
+    order) in both engines, the module's networks: two step_chunk calls
+    of 8 frames, S = 4 on two shards. Track ids, states, matched_det,
+    deleted_id and hits equal the JAX engine's and each stream's own
+    run_chunk over the same two chunks, exactly. MARS embeds the first two
+    detections of a frame (encode capacity 2), which keeps the test's
+    CPU time down."""
+    jfs, pfs = pair
+    cfg = dict(score_threshold=0.3, background_subtraction=True,
+               encode_capacity=2)
+    jbg = JFrameStep(jfs.detector, jfs.encoder, jt.TrackerConfig(**TRACKER),
+                     WANTED, (H, W), JConfig(**cfg))
+    pbg = PFrameStep(pfs.detector, pfs.encoder, pt.TrackerConfig(**TRACKER),
+                     WANTED, (H, W), PConfig(**cfg), device="cpu")
+    je = JEngine(jbg, n_streams=S, mesh=j_make_mesh(2))
+    pe = PEngine(pbg, n_streams=S, mesh=p_make_mesh(2, device="cpu"))
+    frames = bgsub_frames()
+    jst, pst = je.init_states(), pe.init_states()
+    refs = [pbg.init_state() for _ in range(S)]
+    n_valid = 0
+    for c in range(2):
+        x = np.ascontiguousarray(frames[:, 8 * c:8 * (c + 1)])
+        jst, jo, _ = je.step_chunk(jst, x)
+        pst, po, psnap = pe.step_chunk(pst, x)
+        n_valid += int(psnap.valid.sum())
+        for s in range(S):
+            refs[s], ro, _ = pbg.run_chunk(refs[s], x[s])
+            for name in INTS:
+                got = getattr(po, name)[s].numpy()
+                np.testing.assert_array_equal(
+                    got, np.asarray(getattr(jo, name))[s],
+                    err_msg=f"chunk {c} stream {s} {name} vs JAX")
+                np.testing.assert_array_equal(
+                    got, getattr(ro, name).numpy(),
+                    err_msg=f"chunk {c} stream {s} {name} vs run_chunk")
+    assert n_valid > 0
+    assert int((po.matched_det >= 0).sum()) > 0

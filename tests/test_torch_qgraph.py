@@ -46,6 +46,7 @@ from deepdish_tpu_torch.models import qgraph as pq
 from deepdish_tpu_torch.models import tflite_meta
 from deepdish_tpu_torch.models.mars import INPUT_SHAPE, MarsNet
 from deepdish_tpu_torch.models.ssd_mobilenet import SSDMobileNetV1
+from test_torch_models import one_torch_thread  # noqa: F401 (autouse)
 
 RT = tf.lite.experimental.OpResolverType
 SSD_SIZE = 128          # full width (300) is chip_smoke.py's

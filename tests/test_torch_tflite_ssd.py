@@ -54,6 +54,7 @@ from deepdish_tpu_torch.models import ssd_mobilenet as pssd
 from deepdish_tpu_torch.models import weights as pw
 from deepdish_tpu_torch.models.layers import BatchNorm, SameConv2d
 from test_torch_models import numpy_flax_variables
+from test_torch_models import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.timeout(300)
 F32 = jnp.float32

@@ -41,6 +41,7 @@ from deepdish_tpu_torch.models import yolov3 as py3
 from deepdish_tpu_torch.models import yolov5 as py5
 from deepdish_tpu_torch.models.layers import BatchNorm, SameConv2d
 from test_torch_models import numpy_flax_variables
+from test_torch_models import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_tflite_ssd import (bind_jax_trace, detector_matches,
                                    fold_roundtrip, image, jax_conversion,
                                    jax_trace, same_flat, same_readers,
