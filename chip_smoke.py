@@ -169,9 +169,32 @@ and reads JPEGs). Phases, each fatal on failure:
              tools.profile_components (chunk 32, 5 reps): each prints its
              JSON line; every number finite (timings positive), LSAP
              launches > 0 in every bench mode;
- 16. report  the `kernels` JSON line (the LSAP's launches: phases 6, 8, 9,
-             10, 11, 12, 13 and 15), the card's name and power limit, and as
-             the last line {"ok": true, "device": {...}}.
+ 16. tools   the last measuring and validation tools through their `main`:
+             tools.flops_report for SSD + MARS, YOLOv5s, YOLOv3,
+             EfficientDet-Lite0, Faster R-CNN and the full-integer SSD
+             (--quantized) at chunk 32, encode capacity 8: GFLOP a frame
+             by stage, the card's count at 32 frames equal to 32 times the
+             CPU's at 1, stage by stage; SSD + MARS's TFLOP/s and MFU at
+             phase 15's chunked `_window` rate; fused_dsconv's count on
+             the card (the kernel's reported work) equal to the plain
+             version's on the CPU; tools.profile_micro's three groups at
+             the JAX tool's shapes (8 reps; host ms, device ms, host syncs
+             a call; the LSAP kernel's 64x64 assignment equal to the plain
+             version's); tools.coldstart_probe's --fresh and --cold legs
+             in fresh processes (720p, chunk 32; the cold leg builds the
+             LSAP library with nvcc into an empty directory; equal track
+             ids); tools.zoo_validate --device cuda and --device cpu on a
+             float SSD with the postprocess op, a float MARS and their
+             full-integer counterparts, written as phases 11 and 12 write
+             them: exit 0, parse, anchors, convert and drive PASS
+             (encoders: convert), integer, detect and embed SKIP without
+             tensorflow, card steps == CPU steps (the drive step only
+             where cv2 writes and reads back an mp4: else a line says so);
+             none of its runs adds to the LSAP's launch count
+             (flops_report replays the tracker to split its count);
+ 17. report  the `kernels` JSON line (the LSAP's launches: phases 6, 8, 9,
+             10, 11, 12, 13 and 15), the card's name and power limit,
+             and as the last line {"ok": true, "device": {...}}.
 
 Each phase prints its seconds.
 Exits non-zero, printing no result, when there is no card or the port is not
@@ -181,6 +204,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import io
 import json
 import subprocess
 import sys
@@ -4195,7 +4219,7 @@ def phase_bench(dev, donors):
     every bench mode must have launched the LSAP kernel. Whether the
     loader builds is checked before any run (`bench.loader_problem`).
     `donors` are phase 13's `_par_donors()`. Returns the LSAP launches of
-    the runs."""
+    the runs and the chunked synthetic run's `value_window` (frames/s)."""
     import tempfile
 
     from deepdish_tpu_torch.kernels import lsap
@@ -4216,12 +4240,14 @@ def phase_bench(dev, donors):
                                              str(4 * PAR_CHUNK)])]
     else:
         log(f"[bench] the mp4 source is not run: {missing}")
-    launches, problems = 0, []
+    launches, problems, fps = 0, [], None
     with tempfile.TemporaryDirectory() as tmp:
         for tag, argv in runs:
             t0 = time.perf_counter()
             line = bench.main(argv + ["--video-dir", tmp],
                               framestep=fs)
+            if tag == "chunked, synthetic":
+                fps = line["value_window"]
             launches += line["lsap_launches"]
             p = _bench_problems(line)
             if line["lsap_launches"] <= 0:
@@ -4248,7 +4274,237 @@ def phase_bench(dev, donors):
         f"{time.perf_counter() - t_phase:.1f} s")
     if problems:
         raise SystemExit(f"bench: {problems[:8]}")
-    return launches
+    return launches, fps
+
+
+# ---------------------------------------------------------------- phase 16
+
+TOOLS_CHUNK = 32           # flops_report's --chunk (the JAX tool's default)
+TOOLS_ENC_CAP = 8
+MICRO_REPS = 8             # profile_micro --reps
+# flops_report's families: (label, --model, --quantized); "QSSD" is the
+# full-integer SSD file the phase writes
+TOOLS_FAMILIES = (("SSD + MARS", "ssd_mobilenet", False),
+                  ("YOLOv5s", "yolov5s", False), ("YOLOv3", "yolov3", False),
+                  ("EfficientDet-Lite0", "efficientdet-lite0", False),
+                  ("Faster R-CNN", "faster_rcnn", False),
+                  ("quantized SSD", "QSSD", True))
+
+
+def _zoo_files(tmp):
+    """The zoo battery's artifacts, written as phases 11 and 12 write them:
+    a float SSD-MobileNetV1 with the postprocess op and a float MARS
+    (`written_tflite`, calibrated donors), and their full-integer
+    counterparts (`QuantGraph`: `quant_ssd_donor` quantized on the walker
+    scene, the MARS donor on its calibration images). Returns
+    {name: path}."""
+    import torch
+    from deepdish_tpu_torch.models.mars import INPUT_SHAPE, MarsNet
+    from deepdish_tpu_torch.models.preprocess import resize_bilinear_mxu
+    from deepdish_tpu_torch.models.ssd_mobilenet import (INPUT_SIZE,
+                                                         SSDMobileNetV1)
+    ssd = SSDMobileNetV1()
+    _calibrated_init(ssd, torch.Generator().manual_seed(SEED),
+                     _calibration_images(INPUT_SIZE, INPUT_SIZE))
+    mars = MarsNet()
+    _calibrated_init(mars, torch.Generator().manual_seed(SEED + 1),
+                     _calibration_images(*INPUT_SHAPE[:2]))
+    scene = np.ascontiguousarray(np.stack(
+        [_cli_scene(CLI_START + 3 * k) for k in range(QUANT_CHUNK)])[..., ::-1])
+    resized = resize_bilinear_mxu(torch.from_numpy(scene), INPUT_SIZE,
+                                  INPUT_SIZE, torch.float32)
+    files = {
+        "ssd_mobilenet_v1_coco_pp.tflite": written_tflite(
+            ssd, (1, INPUT_SIZE, INPUT_SIZE, 3), _ssd_pp_options()),
+        "mars-small128.tflite": written_tflite(mars, (1,) + INPUT_SHAPE),
+        "ssd_mobilenet_v1_coco_quant_postprocess.tflite": quantized_ssd_graph(
+            quant_ssd_donor(), INPUT_SIZE, resized.numpy(),
+            _ssd_pp_options()).tflite(),
+        "mars-little128_int8.tflite": quantized_mars_graph(
+            mars, _calibration_images(*INPUT_SHAPE[:2]).numpy()).tflite()}
+    paths = {}
+    for name, data in files.items():
+        paths[name] = f"{tmp}/{name}"
+        with open(paths[name], "wb") as f:
+            f.write(data)
+    return paths
+
+
+def _mp4_problem(tmp):
+    """None when this machine's cv2 writes the zoo battery's drive video
+    and reads its 16 frames back; else what failed, in words."""
+    from deepdish_tpu_torch.tools import zoo_validate
+    try:
+        import cv2
+        path = f"{tmp}/probe.mp4"
+        zoo_validate.write_drive_video(path)
+        cap = cv2.VideoCapture(path)
+        n = 0
+        while cap.read()[0]:
+            n += 1
+        cap.release()
+    except Exception as e:              # cv2 missing or broken
+        return f"cv2 cannot write and read an mp4 ({e})"
+    return None if n == 16 else f"cv2 read {n} of the 16 frames it wrote"
+
+
+def _tools_flops(dev, fps, qssd):
+    """flops_report per family: the card's count at TOOLS_CHUNK frames must
+    be TOOLS_CHUNK times the CPU's at 1 frame, stage by stage (exact
+    integers). SSD + MARS also prints its MFU at `fps`. Returns
+    problems."""
+    import torch
+    from deepdish_tpu_torch.tools import flops_report
+    problems = []
+    for label, model, quantized in TOOLS_FAMILIES:
+        argv = ["--model", qssd if model == "QSSD" else model,
+                "--enc-cap", str(TOOLS_ENC_CAP)] + \
+            (["--quantized"] if quantized else [])
+        t0 = time.perf_counter()
+        card = flops_report.main(
+            argv + ["--chunk", str(TOOLS_CHUNK)]
+            + (["--fps", str(fps)] if model == "ssd_mobilenet" else []))
+        cpu = flops_report.main(argv + ["--chunk", "1", "--device", "cpu"])
+        torch.cuda.synchronize()
+        stages = card["stage_flops_per_dispatch"]
+        equal = stages == {k: TOOLS_CHUNK * v for k, v in
+                           cpu["stage_flops_per_dispatch"].items()}
+        if not equal or card["flops_per_dispatch"] <= 0 or \
+                sum(stages.values()) != card["flops_per_dispatch"]:
+            problems.append(f"{label}: card {stages} at {TOOLS_CHUNK} "
+                            f"frames, CPU {cpu['stage_flops_per_dispatch']} "
+                            f"at 1")
+        log(f"[tools] flops {label}: {card['value']:.4f} GFLOP a frame ("
+            + ", ".join(f"{k} {v:.4f}"
+                        for k, v in card["gflop_per_frame"].items())
+            + f"); card at {TOOLS_CHUNK} frames == {TOOLS_CHUNK} x CPU at 1, "
+            f"stage by stage: {equal} ({time.perf_counter() - t0:.1f} s)")
+    return problems
+
+
+def _tools_zoo(dev, paths, tmp):
+    """zoo_validate on each written file on the card and on the CPU: exit
+    0, parse / anchors / convert / drive PASS (the encoder files: convert),
+    integer / detect / embed SKIP without tensorflow, and the card's steps
+    equal to the CPU's. The drive step runs only where cv2 writes and
+    reads back an mp4 (checked first; else a line says so and
+    --skip-drive is passed). Returns problems."""
+    from deepdish_tpu_torch.tools import zoo_validate
+    missing = _mp4_problem(tmp)
+    extra = []
+    if missing is not None:
+        log(f"[tools] zoo_validate's drive step is not run: {missing}")
+        extra = ["--skip-drive"]
+    try:
+        import tensorflow  # noqa: F401
+        has_tf = True
+    except ImportError:
+        has_tf = False
+    problems = []
+    for name, path in paths.items():
+        encoder = "mars" in name
+        must_pass = ["convert"] if encoder else \
+            ["parse", "anchors", "convert"] + ([] if extra else ["drive"])
+        must_skip = [] if has_tf else (
+            ["embed"] if encoder else ["integer", "detect"])
+        got = {}
+        for d in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            rc = zoo_validate.main([path, "--device", d] + extra)
+            got[d] = (rc, {s: st for s, st, _ in zoo_validate.RESULTS})
+            log(f"[tools] zoo_validate {name} --device {d}: exit {rc}, "
+                f"{got[d][1]} ({time.perf_counter() - t0:.1f} s)")
+        rc, steps = got["cuda"]
+        if rc != 0 or got["cpu"] != got["cuda"] or \
+                any(steps.get(s) != "PASS" for s in must_pass) or \
+                any(steps.get(s) != "SKIP" for s in must_skip):
+            problems.append(f"{name}: card {got['cuda']}, CPU {got['cpu']}")
+    return problems
+
+
+def phase_tools(dev, fps):
+    """The port's last measuring and validation tools through their `main`:
+    flops_report for SSD + MARS, YOLOv5s, YOLOv3, EfficientDet-Lite0,
+    Faster R-CNN and the quantized SSD (the card's count equal to the
+    CPU's; SSD + MARS's MFU at `fps`, phase 15's chunked `_window` rate),
+    and the dsconv kernel's reported work equal to its plain version's
+    count; profile_micro's three groups at the JAX tool's shapes (the LSAP
+    kernel's assignment equal to the plain version's); coldstart_probe's
+    two legs in fresh processes (the cold one builds into an empty
+    directory; equal track ids); zoo_validate on the written files
+    (`_zoo_files`) on the card and on the CPU. Its runs count no launches
+    of the main path: flops_report replays the tracker, and the others
+    time or validate."""
+    import tempfile
+
+    import torch
+    from deepdish_tpu_torch.ops.dsconv import fused_dsconv
+    from deepdish_tpu_torch.tools import (coldstart_probe, profile_micro,
+                                          probe_dsconv)
+    from deepdish_tpu_torch.utils import flops
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths = _zoo_files(tmp)
+        log(f"[tools] {len(paths)} zoo files written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        qssd = paths["ssd_mobilenet_v1_coco_quant_postprocess.tflite"]
+        problems = _tools_flops(dev, fps, qssd)
+
+        # the dsconv kernel reports its work: card (kernel) == CPU (plain)
+        _, h, w, cin, cout, s = probe_dsconv.STAGES[-1]
+        x = torch.from_numpy(np.random.RandomState(SEED).standard_normal(
+            (2, h, w, cin)).astype(np.float32))
+        weights = probe_dsconv.block_weights(np.random.RandomState(SEED),
+                                             cin, cout, "cpu", torch.float32)
+        counts = {}
+        for d, dt in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+            with torch.inference_mode(), flops.Count() as c:
+                fused_dsconv(x.to(d, dt), *(t.to(d) for t in weights),
+                             stride=s)
+            counts[d] = c.by_op()
+        log(f"[tools] flops of fused_dsconv at ds13, batch 2: card (kernel)"
+            f" {counts['cuda']}, CPU (plain) {counts['cpu']}")
+        if sum(counts["cuda"].values()) != sum(counts["cpu"].values()) or \
+                counts["cuda"].get(flops.REPORTED) != sum(
+                    counts["cpu"].values()):
+            problems.append(f"dsconv flops: {counts}")
+
+        t0 = time.perf_counter()
+        micro = profile_micro.main(["--reps", str(MICRO_REPS)])
+        if micro["lsap_kernel_equal"] is not True:
+            problems.append("profile_micro: the LSAP kernel's assignment "
+                            "differs from the plain version's")
+        for row in micro["legs"]:
+            ms = [row["host_ms"], row["device_ms"]]
+            if not all(np.isfinite(v) and v > 0 for v in ms) or \
+                    not row["host_syncs"] >= 0:
+                problems.append(f"profile_micro: {row}")
+        log(f"[tools] profile_micro: {len(micro['legs'])} legs in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):     # its line holds 2 x 2048 ids
+            cold = coldstart_probe.main([])
+        log("\n".join(out.getvalue().splitlines()[:-1]))
+        legs = cold["legs"]
+        if not cold["track_ids_equal"] or \
+                legs["cold"]["seconds"]["kernel_build"] <= 0 or \
+                not legs["cold"]["build_dir_files"]:
+            problems.append(f"coldstart: ids equal "
+                            f"{cold['track_ids_equal']}, cold leg "
+                            f"{legs['cold']['seconds']}, built "
+                            f"{legs['cold']['build_dir_files']}")
+        log(f"[tools] coldstart_probe: {time.perf_counter() - t0:.1f} s; "
+            f"track ids equal {cold['track_ids_equal']} "
+            f"({sum(i >= 0 for f in legs['fresh']['track_ids'] for i in f)}"
+            f" live); cold leg built {legs['cold']['build_dir_files']}")
+
+        problems += _tools_zoo(dev, paths, tmp)
+    log(f"[tools] phase {time.perf_counter() - t_phase:.1f} s")
+    if problems:
+        raise SystemExit(f"tools: {problems[:8]}")
 
 
 def main() -> int:
@@ -4300,7 +4556,9 @@ def main() -> int:
     donors = timed("donors", _par_donors)       # phases 13 and 15
     entry["launches"] += timed("parallel", phase_parallel, dev, donors)
     by_stride = timed("probe", phase_probe, dev)
-    entry["launches"] += timed("bench", phase_bench, dev, donors)
+    launches, fps = timed("bench", phase_bench, dev, donors)
+    entry["launches"] += launches
+    timed("tools", phase_tools, dev, fps)
     for e, s in zip(ds_entries, (1, 2)):
         e["launches"] = by_stride[s]
     log(json.dumps({"kernels": [entry] + ds_entries}))

@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import flops
 from . import _build
 
 #: wrapper calls that launched the kernel since the count was last reset
@@ -125,6 +126,15 @@ def _library():
     return _lib
 
 
+def work(b: int, h: int, w: int, cin: int, cout: int, stride: int) -> int:
+    """FLOPs of one call, reported to `utils.flops` at its launch (no
+    dispatch mode sees a ctypes launch): the depthwise 3x3 and the
+    pointwise product, as the two convolutions of
+    `ops.dsconv.dsconv_reference` count them."""
+    m = b * -(-h // stride) * -(-w // stride)
+    return flops.conv(m * cin, 9, 1) + flops.conv(m * cout, 1, cin)
+
+
 def smem_bytes(block_n: int) -> int:
     """Dynamic shared memory of one bf16 block `block_n` channels wide
     (builds the library on first use)."""
@@ -206,4 +216,5 @@ def fused(x: torch.Tensor, dw_k: torch.Tensor, dw_scale: torch.Tensor,
         raise RuntimeError(f"dsconv kernel launch failed: CUDA error {err}")
     launches += 1
     stride_launches[stride] += 1
+    flops.report(work(b, h, w, cin, cout, stride))
     return out

@@ -64,6 +64,7 @@ from torch.profiler import record_function
 
 from ..device import resolve_device
 from ..ops import intmath
+from ..utils import flops
 from . import tflite_meta
 from .convert import DETECTION_POSTPROCESS
 from .preprocess import default_compute_dtype
@@ -203,11 +204,13 @@ def int8_weight(w: np.ndarray, device: torch.device) -> torch.Tensor:
 def int8_matmul(a8: torch.Tensor, w: torch.Tensor, n: int) -> torch.Tensor:
     """Exact (M, K) int8 @ (K, n) int8 -> int64 (M, n), `w` from
     `int8_weight`: on the card one torch._int_mm (cuBLASLt, int32
-    accumulators) with the rows padded past 16 and K padded to w's rows;
-    on the CPU `wide_matmul`."""
+    accumulators) with the rows padded past 16 and K padded to w's rows,
+    which reports its unpadded M x K x n product to `utils.flops` (the
+    CPU's matmul is counted as it runs); on the CPU `wide_matmul`."""
     if not a8.is_cuda:
         return wide_matmul(a8, w)
     m, k = a8.shape
+    flops.report(2 * m * k * n)
     kp = w.shape[0]
     mp = max(m, 17)
     if mp != m or kp != k:
@@ -698,6 +701,7 @@ class QGraphExecutor:
         xs = self._xs(qop, x) - qop.attrs["in_zp"]
         with record_function("qgraph.depthwise"):
             taps, _, _ = self._taps(qop, xs)
+            flops.report(flops.conv(taps[0].numel(), len(taps), 1))
             acc = taps[0] * ks[0]
             for t, kt in zip(taps[1:], ks[1:]):
                 acc = acc + t * kt

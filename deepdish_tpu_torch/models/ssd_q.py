@@ -41,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import flops
 from .layers import flax_default_init_, same_pad
 from .mars_q import conv_i8, conv_nhwc
 from .qgraph import int8_weight
@@ -104,11 +105,13 @@ def _q_sym(x, a):
 
 
 def _dw_i8(x8, k8, stride):
-    """Exact int8 depthwise 3x3 SAME: the taps' int32 products summed."""
+    """Exact int8 depthwise 3x3 SAME: the taps' int32 products summed
+    (their work reported to `utils.flops`)."""
     n, h, w, c = x8.shape
     kh, kw = k8.shape[:2]
     ph, pw = same_pad(h, stride, kh), same_pad(w, stride, kw)
     ho, wo = -(-h // stride), -(-w // stride)
+    flops.report(flops.conv(n * ho * wo * c, kh * kw, 1))
     xp = F.pad(x8.to(torch.int32), (0, 0, pw[0], pw[1], ph[0], ph[1]))
     k = k8.reshape(kh * kw, c).to(torch.int32)
     acc = None

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.layers import same_pad
+from ..utils import flops
 
 
 def _check_stride(stride: int) -> None:
@@ -43,11 +44,13 @@ def dsconv_plain(x, dw_k, dw_scale, dw_bias, pw_k, pw_scale, pw_bias,
     (i, j) order from zero, each product and each add a separate rounded
     op; acc * dw_scale + dw_bias as two rounded f32 ops, clip to [0, 6]; one
     cast of the intermediate to x.dtype; its product with pw_k accumulated
-    in f32; y * pw_scale + pw_bias, clip, cast to x.dtype."""
+    in f32; y * pw_scale + pw_bias, clip, cast to x.dtype. The taps'
+    work is reported to `utils.flops` (the matmul is counted as it runs)."""
     _check_stride(stride)
     b, h, w, cin = x.shape
     cout = pw_k.shape[1]
     ho, wo = -(-h // stride), -(-w // stride)
+    flops.report(flops.conv(b * ho * wo * cin, 9, 1))
     dw = dw_k.to(x.dtype).float()
     pw = pw_k.to(x.dtype).float()
     pt, pb = same_pad(h, stride, 3)

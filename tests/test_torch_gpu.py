@@ -301,6 +301,32 @@ def test_exact_integer_contractions_on_the_card(cuda):
         np.testing.assert_array_equal(got.cpu().numpy(), aw @ ww)
 
 
+def test_flop_counts_on_the_card_equal_the_cpus(cuda):
+    """utils/flops.py counts the same work on the card as on the CPU where
+    another implementation runs: torch._int_mm on padded operands (the
+    CPU: one float64 matmul) and the dsconv kernel (the CPU: its plain
+    version's taps and matmul)."""
+    from deepdish_tpu_torch.models.qgraph import int8_matmul, int8_weight
+    from deepdish_tpu_torch.ops.dsconv import fused_dsconv
+    from deepdish_tpu_torch.utils import flops
+    rng = np.random.RandomState(4)
+    a = rng.randint(-128, 128, (17, 27)).astype(np.int8)
+    w = rng.randint(-127, 128, (27, 45)).astype(np.int8)
+    x = torch.from_numpy(rng.standard_normal((2, 11, 13, 8)).astype(
+        np.float32))
+    weights = (torch.randn(3, 3, 8), torch.ones(8), torch.zeros(8),
+               torch.randn(8, 16), torch.ones(16), torch.zeros(16))
+    totals = {}
+    for dev in (cuda, torch.device("cpu")):
+        with torch.inference_mode(), flops.Count() as c:
+            int8_matmul(torch.from_numpy(a).to(dev), int8_weight(w, dev), 45)
+            for stride in (1, 2):
+                fused_dsconv(x.to(dev), *(t.to(dev) for t in weights),
+                             stride=stride)
+        totals[dev.type] = c.total
+    assert totals["cuda"] == totals["cpu"] > 2 * 17 * 27 * 45
+
+
 def test_quantized_executor_card_matches_cpu(cuda, tmp_path):
     """chip_smoke.py's per-op full-integer graphs through the integer
     executor on the card (each conv_impl form) and on the CPU: every

@@ -1,5 +1,7 @@
 """The port stands alone: deepdish_tpu_torch and chip_smoke.py import no
-jax, no flax and nothing of deepdish_tpu, its entry points need a card
+jax, no flax, nothing of deepdish_tpu and nothing of the repository's
+root tools/ (nor tools/_timing.py, which those scripts put on the path),
+its entry points need a card
 unless the caller asks for the CPU, the CLI's modules, the host TFLite
 executor and the multi-stream, MOT and measuring tools import cv2 and PIL
 only inside the functions that need them (the card's machine has
@@ -16,7 +18,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "deepdish_tpu_torch")
-_BANNED = ("jax", "flax", "deepdish_tpu")
+_BANNED = ("jax", "flax", "deepdish_tpu", "tools", "_timing")
 # modules that the CLI imports with --disable-graphics --streaming 0
 _NO_TOP_LEVEL = ("cv2", "PIL")
 _HOST_LAZY = [os.path.join(PKG, *p) for p in (
@@ -24,7 +26,9 @@ _HOST_LAZY = [os.path.join(PKG, *p) for p in (
     ("pipeline", "mjpeg.py"), ("models", "registry.py"),
     ("models", "tflite_host.py"), ("tools", "multistream_demo.py"),
     ("tools", "mot_features.py"), ("tools", "bench.py"),
-    ("tools", "profile_components.py"))]
+    ("tools", "profile_components.py"), ("tools", "flops_report.py"),
+    ("tools", "profile_micro.py"), ("tools", "coldstart_probe.py"),
+    ("tools", "zoo_validate.py"))]
 
 
 def _sources():
@@ -51,7 +55,10 @@ def test_sources_found():
                    ("parallel", "temporal.py"), ("parallel", "grid.py"),
                    ("tools", "multistream_demo.py"),
                    ("tools", "mot_features.py"), ("ops", "geometry.py"),
-                   ("tools", "bench.py"), ("tools", "profile_components.py")):
+                   ("tools", "bench.py"), ("tools", "profile_components.py"),
+                   ("tools", "flops_report.py"), ("tools", "profile_micro.py"),
+                   ("tools", "coldstart_probe.py"),
+                   ("tools", "zoo_validate.py"), ("utils", "flops.py")):
         assert os.path.join("deepdish_tpu_torch", *module) in names
     assert len(names) > 30
 
@@ -154,10 +161,15 @@ def test_import_pulls_no_jax():
             "deepdish_tpu_torch.tools.multistream_demo, "
             "deepdish_tpu_torch.tools.mot_features, "
             "deepdish_tpu_torch.tools.bench, "
-            "deepdish_tpu_torch.tools.profile_components\n"
+            "deepdish_tpu_torch.tools.profile_components, "
+            "deepdish_tpu_torch.tools.flops_report, "
+            "deepdish_tpu_torch.tools.profile_micro, "
+            "deepdish_tpu_torch.tools.coldstart_probe, "
+            "deepdish_tpu_torch.tools.zoo_validate, "
+            "deepdish_tpu_torch.utils.flops\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'deepdish_tpu', 'cv2', 'PIL', 'tensorflow', "
-            "'h5py', 'flatbuffers')]\n"
+            "('jax', 'flax', 'deepdish_tpu', 'tools', '_timing', 'cv2', "
+            "'PIL', 'tensorflow', 'h5py', 'flatbuffers')]\n"
             "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -170,7 +182,9 @@ def test_entry_points_need_cuda_unless_cpu():
                                            create_detector)
     from deepdish_tpu_torch.pipeline import FrameStep
     from deepdish_tpu_torch.tools import bench, probe_dsconv
-    from deepdish_tpu_torch.tools import profile_components
+    from deepdish_tpu_torch.tools import (coldstart_probe, flops_report,
+                                          profile_components, profile_micro,
+                                          zoo_validate)
     cfg = pt.TrackerConfig(max_tracks=4, max_detections=2, feature_dim=128,
                            gallery_size=8, pending_size=2)
     det = create_detector("ssd_mobilenet", device="cpu")
@@ -197,7 +211,12 @@ def test_entry_points_need_cuda_unless_cpu():
                  lambda: bench.main([]),
                  lambda: bench.main(["--latency"]),
                  lambda: bench.main(["--streams", "16"]),
-                 lambda: profile_components.main([])):
+                 lambda: profile_components.main([]),
+                 lambda: flops_report.main([]),
+                 lambda: profile_micro.main([]),
+                 lambda: coldstart_probe.main([]),
+                 lambda: coldstart_probe.main(["--cold"]),
+                 lambda: zoo_validate.main(["detect.tflite"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 
