@@ -62,11 +62,14 @@ and reads JPEGs). Phases, each fatal on failure:
              directory: the default configuration (ssd_mobilenet + MARS,
              bgsub on, every COCO label wanted) at --chunk-size 1 and 8,
              every frame finite, its objd and e2e ms/frame; the same in
-             float32 on the card and on the CPU at chunk 1 and 8, whose
-             counters must agree at each chunk size; and
+             float32 on the card and on the CPU at chunk 1 and 8 over the
+             scene's frames CLI_SHORT_FIRST on (CLI_SHORT_FRAMES: the
+             walkers from their start to past their crossing), whose
+             counters must agree at each chunk size and not all be 0; and
              `--model scripted:bright` on the card (LSAP launches, reset
-             before and read after, > 0) and on the CPU, whose counters
-             must both equal the crossings the scene implies;
+             before and read after, > 0) and on the CPU over the same
+             frames, whose counters must both equal the crossings the
+             scene implies;
   8. families YOLOv5s (320), YOLOv3 (416) and EfficientDet-Lite0 (320) at
              full width, seeded random weights with calibrated batch norms
              (`_family_init`; FAMILY_THRESHOLD): float32 detector outputs
@@ -129,7 +132,8 @@ and reads JPEGs). Phases, each fatal on failure:
              CLI at --chunk-size 8 with --quantized-inference on the two
              files and with --detector-int8 --encoder-model mars_int8 (bf16:
              objd, e2e, host syncs a frame, LSAP launches > 0), and each in
-             float32 on the card and on the CPU, whose counters must agree;
+             float32 on the card and on the CPU over phase 7's float32
+             frames, whose counters must agree and not all be 0;
  13. parallel the parallel engines and the last tools: MultiStreamEngine
              at bench.py's config 5 (16 streams of the walker scene at 720p,
              each rolled 48 px further, step_chunk at chunk 8, calibrated
@@ -178,7 +182,7 @@ and reads JPEGs). Phases, each fatal on failure:
              phase 15's chunked `_window` rate; fused_dsconv's count on
              the card (the kernel's reported work) equal to the plain
              version's on the CPU; tools.profile_micro's three groups at
-             the JAX tool's shapes (8 reps; host ms, device ms, host syncs
+             the JAX tool's shapes (4 reps; host ms, device ms, host syncs
              a call; the LSAP kernel's 64x64 assignment equal to the plain
              version's); tools.coldstart_probe's --fresh and --cold legs
              in fresh processes (720p, chunk 32; the cold leg builds the
@@ -192,8 +196,24 @@ and reads JPEGs). Phases, each fatal on failure:
              where cv2 writes and reads back an mp4: else a line says so);
              none of its runs adds to the LSAP's launch count
              (flops_report replays the tracker to split its count);
- 17. report  the `kernels` JSON line (the LSAP's launches: phases 6, 8, 9,
-             10, 11, 12, 13 and 15), the card's name and power limit,
+ 17. probes  the six last tools through their `main` at the JAX tools'
+             shapes, PROBE_ROUNDS timed rounds each: tools.probe_int8
+             (bf16 against int8 on a 4096^2 product and three convs; the
+             int8 legs card == CPU exactly on a seeded input),
+             tools.profile_mars_int8 (MARS at batch 1024 in bf16 and int8,
+             impl dot and conv, their features bit-equal; the fused step at
+             chunk 32, 720p, encode capacity 32 and 8, on phase 13's
+             donors), tools.round4_ab_interleaved --mars-bisect
+             --mars-cap32 --det-int8 --weights on phase 12's full-integer
+             SSD file, tools.probe_grouped_conv (the packed layout per crop
+             == the base conv within the reorder bound) and
+             tools.profile_mars_width (Wide(32, 64, 128) == MarsNet):
+             exit 0 (a rate above the H100's dense peak exits 1), every
+             timing finite and positive, the fused legs' LSAP launches
+             > 0; tools.decode_probe where the native frame loader loads
+             (else a line names what OpenCV part is missing);
+ 18. report  the `kernels` JSON line (the LSAP's launches: phases 6, 8, 9,
+             10, 11, 12, 13, 15 and 17), the card's name and power limit,
              and as the last line {"ok": true, "device": {...}}.
 
 Each phase prints its seconds.
@@ -1214,6 +1234,11 @@ def phase_reference(dev):
 CLI_WALKERS = 6            # rows of bright blocks, alternating direction
 CLI_START = 20             # frames of empty background before they walk
 CLI_FRAMES = 56
+# the card-vs-CPU CLI runs of phases 7 and 12 (float32, scripted): 4
+# frames of background for MOG2, then the walkers until past their
+# crossing (frame 39)
+CLI_SHORT_FIRST = CLI_START - 4
+CLI_SHORT_FRAMES = 32
 
 
 def _cli_scene(i):
@@ -1252,16 +1277,17 @@ def _cli_expected():
 
 class _SceneCapture:
     """cv2.VideoCapture's interface over numpy frames (the CLI's path needs
-    no cv2): read, get, set, release."""
+    no cv2): read, get, set, release; frames first ... first + n_frames - 1
+    of the scene."""
 
-    def __init__(self, n_frames):
-        self.n, self.i = n_frames, 0
+    def __init__(self, n_frames, first=0):
+        self.n, self.i, self.first = n_frames, 0, first
 
     def read(self):
         if self.i >= self.n:
             return False, None
         self.i += 1
-        return True, _cli_scene(self.i - 1)
+        return True, _cli_scene(self.first + self.i - 1)
 
     def get(self, prop):
         from deepdish_tpu_torch.pipeline import runtime
@@ -1276,11 +1302,11 @@ class _SceneCapture:
         pass
 
 
-def _run_cli(argv, n_frames=None):
-    """deepdish_tpu_torch.pipeline.main.amain, with the scene's first
-    n_frames through Pipeline._open_capture (None: the CLI opens its own
-    input). Returns (pipeline, per-frame timing ms by label, frames seen by
-    the frame step, non-finite frames)."""
+def _run_cli(argv, n_frames=None, first=0):
+    """deepdish_tpu_torch.pipeline.main.amain, with n_frames of the scene
+    from frame `first` through Pipeline._open_capture (None: the CLI opens
+    its own input). Returns (pipeline, per-frame timing ms by label,
+    frames seen by the frame step, non-finite frames)."""
     import asyncio
 
     from deepdish_tpu_torch.pipeline import main as cli
@@ -1292,7 +1318,7 @@ def _run_cli(argv, n_frames=None):
         def _open_capture(self, source):
             if n_frames is None:
                 return super()._open_capture(source)
-            return _SceneCapture(n_frames)
+            return _SceneCapture(n_frames, first)
 
         def _device_step(self, frames_rgb):
             results = super()._device_step(frames_rgb)
@@ -1519,7 +1545,8 @@ def phase_cli(dev):
             del pipe
 
         # Run 1b: the same in float32, on the card and on the CPU, at
-        # chunk 1 and 8: the card must count what the CPU counts
+        # chunk 1 and 8, over the scene's frames CLI_SHORT_FIRST on: the
+        # card must count what the CPU counts, and some counter must move
         f32 = {}
         for where in (dev.type, "cpu"):
             for chunk_size in (1, 8):
@@ -1532,7 +1559,7 @@ def phase_cli(dev):
                                   "--device", where,
                                   "--chunk-size", str(chunk_size),
                                   "--log", f"{tmp}/f32_{where}{chunk_size}"
-                                  ".log"], CLI_FRAMES)
+                                  ".log"], CLI_SHORT_FRAMES, CLI_SHORT_FIRST)
                 f32[where, chunk_size] = {
                     k: v for k, v in
                     pipe.counting.counters_payload().items() if v}
@@ -1541,9 +1568,11 @@ def phase_cli(dev):
                     f"{time.perf_counter() - t0:.1f} s, {lsap.launches} "
                     f"LSAP launches, {bad} non-finite; nonzero counters "
                     f"{f32[where, chunk_size]}")
-                if n != CLI_FRAMES or bad:
+                if n != CLI_SHORT_FRAMES or bad or \
+                        not f32[where, chunk_size]:
                     raise SystemExit(f"cli: the float32 run saw {n} frames, "
-                                     f"{bad} non-finite")
+                                     f"{bad} non-finite, counters "
+                                     f"{f32[where, chunk_size]}")
                 del pipe
         for chunk_size in (1, 8):
             if f32[dev.type, chunk_size] != f32["cpu", chunk_size]:
@@ -1563,7 +1592,7 @@ def phase_cli(dev):
                 common + ["--model", "scripted:bright", "--device", where,
                           "--max-detections", "8",
                           "--log", f"{tmp}/scripted_{where}.log"],
-                CLI_FRAMES)
+                CLI_SHORT_FRAMES, CLI_SHORT_FIRST)
             counts[where] = pipe.counting.counters_payload()
             launches = lsap.launches
             log(f"[cli] scripted:bright on {where}: {n} frames in "
@@ -1572,7 +1601,7 @@ def phase_cli(dev):
                 f"{launches} LSAP launches; counters {counts[where]}")
             if where == "cuda" and launches <= 0:
                 raise SystemExit("cli: the LSAP kernel never launched")
-            if n != CLI_FRAMES or bad:
+            if n != CLI_SHORT_FRAMES or bad:
                 raise SystemExit(f"cli: scripted run saw {n} frames, "
                                  f"{bad} non-finite")
     expected = _cli_expected()
@@ -3588,8 +3617,8 @@ def phase_quantized(dev):
     --quantized-inference on the two files and with --detector-int8
     --encoder-model mars_int8 on the default random SSD (bf16: objd, e2e, host
     syncs a frame, LSAP launches > 0), each also in float32 on the card and
-    on the CPU, whose counters must agree. Returns the LSAP launches of the
-    bf16 CLI runs."""
+    on the CPU over phase 7's float32 frames, whose counters must agree and
+    not all be 0. Returns the LSAP launches of the bf16 CLI runs."""
     import tempfile
 
     import torch
@@ -3767,13 +3796,13 @@ def phase_quantized(dev):
                     pipe, _, nf, bad = _run_cli(
                         common + argv + ["--device", d, "--encode-capacity",
                                          "8", "--log", f"{tmp}/q32_{d}.log"],
-                        CLI_FRAMES)
+                        CLI_SHORT_FRAMES, CLI_SHORT_FIRST)
                     f32.append(pipe.counting.counters_payload())
                     log(f"[quantized] CLI float32 {tag} on {d}: {nf} frames "
                         f"in {time.perf_counter() - t0:.1f} s, counters "
                         f"{ {k: v for k, v in f32[-1].items() if v} }")
                     del pipe
-            if f32[0] != f32[1]:
+            if f32[0] != f32[1] or not any(f32[1].values()):
                 raise SystemExit(f"quantized: CLI {tag} float32 counters "
                                  f"card {f32[0]} vs CPU {f32[1]}")
     smi = subprocess.run(
@@ -4281,7 +4310,7 @@ def phase_bench(dev, donors):
 
 TOOLS_CHUNK = 32           # flops_report's --chunk (the JAX tool's default)
 TOOLS_ENC_CAP = 8
-MICRO_REPS = 8             # profile_micro --reps
+MICRO_REPS = 4             # profile_micro --reps
 # flops_report's families: (label, --model, --quantized); "QSSD" is the
 # full-integer SSD file the phase writes
 TOOLS_FAMILIES = (("SSD + MARS", "ssd_mobilenet", False),
@@ -4300,7 +4329,6 @@ def _zoo_files(tmp):
     {name: path}."""
     import torch
     from deepdish_tpu_torch.models.mars import INPUT_SHAPE, MarsNet
-    from deepdish_tpu_torch.models.preprocess import resize_bilinear_mxu
     from deepdish_tpu_torch.models.ssd_mobilenet import (INPUT_SIZE,
                                                          SSDMobileNetV1)
     ssd = SSDMobileNetV1()
@@ -4309,17 +4337,11 @@ def _zoo_files(tmp):
     mars = MarsNet()
     _calibrated_init(mars, torch.Generator().manual_seed(SEED + 1),
                      _calibration_images(*INPUT_SHAPE[:2]))
-    scene = np.ascontiguousarray(np.stack(
-        [_cli_scene(CLI_START + 3 * k) for k in range(QUANT_CHUNK)])[..., ::-1])
-    resized = resize_bilinear_mxu(torch.from_numpy(scene), INPUT_SIZE,
-                                  INPUT_SIZE, torch.float32)
     files = {
         "ssd_mobilenet_v1_coco_pp.tflite": written_tflite(
             ssd, (1, INPUT_SIZE, INPUT_SIZE, 3), _ssd_pp_options()),
         "mars-small128.tflite": written_tflite(mars, (1,) + INPUT_SHAPE),
-        "ssd_mobilenet_v1_coco_quant_postprocess.tflite": quantized_ssd_graph(
-            quant_ssd_donor(), INPUT_SIZE, resized.numpy(),
-            _ssd_pp_options()).tflite(),
+        "ssd_mobilenet_v1_coco_quant_postprocess.tflite": _quant_ssd_tflite(),
         "mars-little128_int8.tflite": quantized_mars_graph(
             mars, _calibration_images(*INPUT_SHAPE[:2]).numpy()).tflite()}
     paths = {}
@@ -4328,6 +4350,21 @@ def _zoo_files(tmp):
         with open(paths[name], "wb") as f:
             f.write(data)
     return paths
+
+
+def _quant_ssd_tflite():
+    """Phase 12's full-integer SSD-MobileNetV1 file (`quant_ssd_donor`,
+    quantized on QUANT_CHUNK frames of the walker scene), as bytes."""
+    import torch
+    from deepdish_tpu_torch.models.preprocess import resize_bilinear_mxu
+    from deepdish_tpu_torch.models.ssd_mobilenet import INPUT_SIZE
+    scene = np.ascontiguousarray(np.stack(
+        [_cli_scene(CLI_START + 3 * k)
+         for k in range(QUANT_CHUNK)])[..., ::-1])
+    resized = resize_bilinear_mxu(torch.from_numpy(scene), INPUT_SIZE,
+                                  INPUT_SIZE, torch.float32)
+    return quantized_ssd_graph(quant_ssd_donor(), INPUT_SIZE, resized.numpy(),
+                               _ssd_pp_options()).tflite()
 
 
 def _mp4_problem(tmp):
@@ -4507,6 +4544,134 @@ def phase_tools(dev, fps):
         raise SystemExit(f"tools: {problems[:8]}")
 
 
+# ---------------------------------------------------------------- phase 17
+
+PROBE_ROUNDS = 2           # timed rounds of every probe (the tools': 3-4)
+PROBE_MARS_REPS = 2        # profile_mars_int8's calls a round (32; fused 16)
+PROBE_AB_REPS = 2          # round4_ab_interleaved's calls a round (16)
+
+
+def _tool_run(mod, argv, **seams):
+    """mod.main(argv, **seams) with its output captured and logged line by
+    line; returns (exit code, its last line's JSON object)."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = mod.main(argv, **seams)
+    lines = out.getvalue().strip().splitlines()
+    name = mod.__name__.rsplit(".", 1)[1]
+    for line in lines:
+        log(f"[probes] {name}: {line}")
+    log(f"[probes] {' '.join([name] + argv)}: exit {rc} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return rc, json.loads(lines[-1])
+
+
+def _numbers(tree, where):
+    """The numbers of a JSON subtree that are not finite and positive."""
+    return [f"{where}: {p}" for p in _bench_problems(tree)]
+
+
+def phase_probes(dev, donors):
+    """The six last tools through their `main` on the card at the JAX
+    tools' shapes, with PROBE_ROUNDS rounds (and fewer calls a round for
+    the MARS and fused legs): probe_int8 (4096^2 and the three convs; the
+    int8 legs card == CPU exactly on a seeded input), profile_mars_int8
+    (MARS at batch 1024 in bf16 and int8 with impl dot and conv, whose
+    features must be bit-equal; the fused step at chunk 32, 720p, encode
+    capacity 32 and 8), round4_ab_interleaved with --mars-bisect
+    --mars-cap32 --det-int8 and --weights on phase 12's full-integer SSD
+    file, probe_grouped_conv (the packed layout per crop == the base conv
+    within the reorder bound), profile_mars_width (Wide(32, 64, 128) ==
+    MarsNet); no rate above the H100's dense peak (the tools exit 1 on
+    one), every timing finite and positive, the fused legs' LSAP launches
+    > 0. Then decode_probe where the native frame loader loads: where
+    `bench.loader_problem` names OpenCV, a line says so and that one run
+    is skipped. The fused legs run on the donors' weights (phase 13's).
+    Returns the LSAP launches of the fused legs."""
+    import tempfile
+
+    from deepdish_tpu_torch.tools import (bench, decode_probe,
+                                          probe_grouped_conv, probe_int8,
+                                          profile_mars_int8,
+                                          profile_mars_width,
+                                          round4_ab_interleaved)
+    t_phase = time.perf_counter()
+    problems, launches = [], 0
+    rc, line = _tool_run(probe_int8, [], rounds=PROBE_ROUNDS)
+    if rc or line["int8_card_equals_cpu"] is not True or line["over_peak"]:
+        problems.append(f"probe_int8: exit {rc}, card == CPU "
+                        f"{line['int8_card_equals_cpu']}, over the peak "
+                        f"{line['over_peak']}")
+    problems += _numbers([{k: v for k, v in r.items() if k != "shape"}
+                          for r in line["legs"]], "probe_int8")
+
+    rc, line = _tool_run(profile_mars_int8, [], rounds=PROBE_ROUNDS,
+                         reps=PROBE_MARS_REPS, fused_reps=PROBE_MARS_REPS,
+                         donors=donors)
+    launches += line["lsap_launches"]
+    if rc or not line["dot_conv_features_equal"] or \
+            line["lsap_launches"] <= 0:
+        problems.append(f"profile_mars_int8: exit {rc}, dot == conv "
+                        f"{line['dot_conv_features_equal']}, LSAP launches "
+                        f"{line['lsap_launches']}")
+    problems += _numbers([line["standalone"], line["ratios"]] + [
+        g["legs"] for g in line["fused"].values()], "profile_mars_int8")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        qssd = f"{tmp}/ssd_mobilenet_v1_coco_quant_postprocess.tflite"
+        with open(qssd, "wb") as f:
+            f.write(_quant_ssd_tflite())
+        rc, line = _tool_run(
+            round4_ab_interleaved, ["--weights", qssd, "--mars-bisect",
+                                    "--mars-cap32", "--det-int8"],
+            rounds=PROBE_ROUNDS, reps=PROBE_AB_REPS, donors=donors)
+    launches += line["lsap_launches"]
+    if rc or line["lsap_launches"] <= 0 or len(line["modes"]) != 4:
+        problems.append(f"round4_ab_interleaved: exit {rc}, modes "
+                        f"{line['modes']}, LSAP launches "
+                        f"{line['lsap_launches']}")
+    problems += _numbers(
+        [line["ratios"], line["weights"]["legs"], line["mars_cap32"]["legs"],
+         line["mars_bisect"]["standalone"], line["mars_bisect"]["crop"],
+         line["mars_bisect"]["fused_cap8"]["legs"]]
+        + [g["legs"] for g in line["det_int8"].values()],
+        "round4_ab_interleaved")
+
+    rc, line = _tool_run(probe_grouped_conv,
+                         ["--rounds", str(PROBE_ROUNDS)])
+    if rc or not line["packed_identity_holds"] or line["over_peak"]:
+        excess = [r["packed_identity_excess"] for r in line["shapes"]]
+        problems.append(f"probe_grouped_conv: exit {rc}, identity excess "
+                        f"{excess}, over the peak {line['over_peak']}")
+    problems += _numbers([r["legs"] for r in line["shapes"]],
+                         "probe_grouped_conv")
+
+    rc, line = _tool_run(profile_mars_width, [], rounds=PROBE_ROUNDS)
+    if rc or not line["wide_equals_marsnet"]:
+        problems.append(f"profile_mars_width: exit {rc}, Wide == MarsNet "
+                        f"{line['wide_equals_marsnet']}")
+    problems += _numbers([{k: r[k] for k in ("ms_per_batch", "us_per_crop",
+                                             "vs_stock")}
+                          for r in line["variants"]], "profile_mars_width")
+
+    missing = bench.loader_problem()
+    if missing is not None and "opencv" in missing.lower():
+        log(f"[probes] decode_probe is not run: {missing}")
+    else:
+        rc, line = _tool_run(decode_probe, [])
+        if rc:
+            problems.append(f"decode_probe: exit {rc}")
+        problems += _numbers([line["decode_only_fps"],
+                              line["striped_fps_by_workers"]],
+                             "decode_probe")
+    log(f"[probes] {launches} LSAP launches in the fused legs; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if problems:
+        raise SystemExit(f"probes: {problems[:8]}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4547,18 +4712,20 @@ def main() -> int:
     timed("cli", phase_cli, dev)
     # the LSAP launches of the main path: the slice, the families, CVAT,
     # Faster R-CNN, the tflite phase's CLI, the quantized phase's CLIs, the
-    # multi-stream engine at full width and the measuring tools
+    # multi-stream engine at full width, the measuring tools and the
+    # probes' fused legs
     entry["launches"] += timed("families", phase_families, dev)
     entry["launches"] += timed("cvat", phase_cvat, dev)
     entry["launches"] += timed("frcnn", phase_frcnn, dev)
     entry["launches"] += timed("tflite", phase_tflite, dev)
     entry["launches"] += timed("quantized", phase_quantized, dev)
-    donors = timed("donors", _par_donors)       # phases 13 and 15
+    donors = timed("donors", _par_donors)       # phases 13, 15 and 17
     entry["launches"] += timed("parallel", phase_parallel, dev, donors)
     by_stride = timed("probe", phase_probe, dev)
     launches, fps = timed("bench", phase_bench, dev, donors)
     entry["launches"] += launches
     timed("tools", phase_tools, dev, fps)
+    entry["launches"] += timed("probes", phase_probes, dev, donors)
     for e, s in zip(ds_entries, (1, 2)):
         e["launches"] = by_stride[s]
     log(json.dumps({"kernels": [entry] + ds_entries}))

@@ -19,12 +19,23 @@ Scheme (post-training, as in the JAX package):
     the final L2 norm) runs in the compute dtype: bf16 on the card by
     default, float32 on the CPU and for parity.
 
-The contraction is models/qgraph.py's exact helper (`int8_matmul`): one
-`torch._int_mm` (cuBLASLt int8, int32 accumulators) per layer on the card
-over im2col patches, an exact float64 matmul on the CPU; the accumulators
-equal the JAX package's int32 ones bit for bit. Tensors are NHWC as in the JAX
-version; `params` is a MarsNet state_dict (flat, dotted names) and the
-quantized layers keep their flax paths ("conv2_1/inner/conv1").
+Two exact int8 contractions of the convolutions, chosen by `impl` as in
+the JAX package (the dense layer is `int8_matmul` in both); each gives the
+JAX package's int32 accumulators bit for bit:
+  * "dot": zero-pad, im2col by slicing, then models/qgraph.py's
+    `int8_matmul`: one `torch._int_mm` (cuBLASLt int8, int32 accumulators)
+    per layer on the card, an exact float64 matmul on the CPU;
+  * "conv": a direct convolution of the int8 codes in float64 with cuDNN
+    off (models/qgraph.py's "xconv"): torch has no int8 convolution on
+    CUDA, every product and partial sum is an integer far below 2^53, and
+    without cuDNN no Winograd or FFT algorithm rounds the sum;
+  * "auto": "dot" on every device. The JAX package resolves "auto" to
+    "conv" from a TPU v5e measurement (deepdish_tpu/models/mars_q.py:24-33)
+    that says nothing of this card; `tools/profile_mars_int8.py` times both
+    impls on it, and "auto" keeps the path the CLI has always run.
+Tensors are NHWC as in the JAX version; `params` is a MarsNet state_dict
+(flat, dotted names) and the quantized layers keep their flax paths
+("conv2_1/inner/conv1").
 """
 from __future__ import annotations
 
@@ -96,6 +107,19 @@ def conv_i8(x8, wmat, kh, kw, stride, co):
     return acc.reshape(n, ho, wo, co)
 
 
+def conv_i8_direct(x8, w64, stride):
+    """Exact SAME int8 convolution as one direct float64 convolution with
+    cuDNN off: x8 (N, H, W, Cin) int8, w64 the (Cout, Cin, kh, kw) float64
+    kernel (`prepare_qparams`' "wconv") -> (N, Ho, Wo, Cout) int64."""
+    v = x8.permute(0, 3, 1, 2).double()
+    ph = same_pad(v.shape[2], stride, w64.shape[2])
+    pw = same_pad(v.shape[3], stride, w64.shape[3])
+    v = F.pad(v, (pw[0], pw[1], ph[0], ph[1]))
+    with torch.backends.cudnn.flags(enabled=False):
+        acc = F.conv2d(v, w64, stride=stride)
+    return acc.permute(0, 2, 3, 1).long()
+
+
 def _quantize_act(x, s_in):
     """Symmetric int8: round(x * (1 / s_in)) (half to even), clamped."""
     recip = float(np.float32(1.0) / np.float32(s_in))
@@ -105,19 +129,33 @@ def _quantize_act(x, s_in):
 
 def prepare_qparams(qparams: Dict[str, Any], device) -> Dict[str, Any]:
     """qparams (from `quantize_mars` or `weights.mars_q_from_jax`) with the
-    base weights on `device` and each int8 kernel as `int8_matmul`'s
-    right-hand matrix there ("wmat"); the quantized forward reads these."""
+    base weights on `device`, each int8 kernel as `int8_matmul`'s
+    right-hand matrix there ("wmat", impl "dot") and each int8 conv kernel
+    as a float64 OIHW tensor there ("wconv", impl "conv"); the quantized
+    forward reads these."""
     dev = torch.device(device)
     out = dict(qparams)
     out["base"] = {k: v.to(dev) for k, v in qparams["base"].items()}
     out["wmat"] = {p: int8_weight(w.reshape(-1, w.shape[-1]), dev)
                    for p, w in qparams["wq"].items()}
+    out["wconv"] = {p: torch.from_numpy(np.asarray(w)).permute(3, 2, 0, 1)
+                    .to(dev, torch.float64).contiguous()
+                    for p, w in qparams["wq"].items() if np.ndim(w) == 4}
     return out
+
+
+IMPLS = ("auto", "dot", "conv")
+
+
+def _resolve_impl(impl: str) -> str:
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    return "dot" if impl == "auto" else impl
 
 
 def mars_forward(params, images, *, compute_dtype=torch.float32,
                  qparams: Optional[Dict[str, Any]] = None,
-                 sink: Optional[dict] = None,
+                 impl: str = "auto", sink: Optional[dict] = None,
                  acc_sink: Optional[dict] = None):
     """One forward shared by three modes, as in the JAX package:
 
@@ -128,10 +166,12 @@ def mars_forward(params, images, *, compute_dtype=torch.float32,
     * quantized (qparams from `prepare_qparams`): int8 matmuls, float glue.
 
     params: a MarsNet state_dict on the images' device; images (N, 128,
-    64, 3) NHWC in [0, 255]. `acc_sink` (quantized mode) receives each
-    layer's (int8 input, int32 accumulator)."""
+    64, 3) NHWC in [0, 255]. `impl` picks the convolutions' int8
+    contraction (module docstring). `acc_sink` (quantized mode) receives
+    each layer's (int8 input, int32 accumulator)."""
     dt = compute_dtype
     P = params
+    impl = _resolve_impl(impl)
 
     def bn(path, v):
         a, b = _bn_ab(P, path)
@@ -147,7 +187,9 @@ def mars_forward(params, images, *, compute_dtype=torch.float32,
             s_w = torch.from_numpy(np.asarray(qparams["wscale"][path],
                                               np.float32)).to(v.device)
             v8 = _quantize_act(v, s_in)
-            if v.dim() == 4:
+            if v.dim() == 4 and impl == "conv":
+                acc = conv_i8_direct(v8, qparams["wconv"][path], stride)
+            elif v.dim() == 4:
                 kh, kw, _, co = k8.shape
                 acc = conv_i8(v8, qparams["wmat"][path], kh, kw, stride, co)
             else:
@@ -247,24 +289,29 @@ def quantize_mars(params, calib_patches: Optional[np.ndarray] = None,
     return {"base": base, "wq": wq, "wscale": wscale, "ascale": ascale}
 
 
-def mars_int8_apply(qparams, patches, compute_dtype=torch.float32):
+def mars_int8_apply(qparams, patches, compute_dtype=torch.float32,
+                    impl: str = "auto"):
     """Features of (N, 128, 64, 3) patches through the int8 network
     (qparams from `prepare_qparams`)."""
     return mars_forward(qparams["base"], patches,
-                        compute_dtype=compute_dtype, qparams=qparams)
+                        compute_dtype=compute_dtype, qparams=qparams,
+                        impl=impl)
 
 
 def make_mars_int8_encoder(state_dict=None, calib_patches=None,
                            compute_dtype: Optional[torch.dtype] = None,
                            device=None,
                            generator: Optional[torch.Generator] = None,
-                           qparams: Optional[Dict[str, Any]] = None):
+                           qparams: Optional[Dict[str, Any]] = None,
+                           impl: str = "auto"):
     """EncoderSpec running MARS with int8 matmuls on `device` (default
     CUDA); drop-in for FrameStep. Float weights from `state_dict` (else
     random, drawn like flax's defaults from `generator`, default seeded
     with 0) are quantized here, calibrated in the compute dtype; or pass
-    ready `qparams` (e.g. `weights.mars_q_from_jax`)."""
+    ready `qparams` (e.g. `weights.mars_q_from_jax`). `impl` picks the
+    convolutions' contraction (module docstring)."""
     from .encoders import EncoderSpec
+    _resolve_impl(impl)
     dev = resolve_device(device)
     dtype = (compute_dtype if compute_dtype is not None
              else default_compute_dtype(dev))
@@ -280,7 +327,7 @@ def make_mars_int8_encoder(state_dict=None, calib_patches=None,
 
     @torch.inference_mode()
     def apply_fn(patches):
-        return mars_int8_apply(qp, patches, dtype)
+        return mars_int8_apply(qp, patches, dtype, impl)
 
     spec = EncoderSpec(INPUT_SHAPE, FEATURE_DIM, apply_fn, dev, dtype)
     spec.qparams = qp

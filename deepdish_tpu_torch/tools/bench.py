@@ -112,6 +112,49 @@ def read(dev: torch.device, t: torch.Tensor) -> np.ndarray:
     return out
 
 
+def round_ms(dev: torch.device, chain, reps: int) -> float:
+    """One timed round of `reps` chained dispatches: `chain(reps)` issues
+    them and returns a tensor of the last. Milliseconds a dispatch, from
+    CUDA events recorded around the chain on the card (the host clock on
+    the CPU); the round ends in a forced host read of one element of that
+    tensor (`read`)."""
+    if dev.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = chain(reps)
+        end.record()
+        read(dev, out.reshape(-1)[:1].float())
+        return start.elapsed_time(end) / reps
+    t0 = time.perf_counter()
+    out = chain(reps)
+    read(dev, out.reshape(-1)[:1].float())
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def interleaved_ms(dev: torch.device, legs: dict, rounds: int, reps: int):
+    """legs {name: (step, x0)}: one warm-up call of each leg, then `rounds`
+    rounds in which each leg in turn runs `reps` chained calls z = step(z)
+    from x0 (`round_ms`; a step that ignores z times a fixed input).
+    Returns ({name: [ms a call, per round]}, {name: the leg's last
+    output})."""
+    last = {}
+    for name, (step, x0) in legs.items():
+        last[name] = step(x0)
+        sync(dev)
+    times = {name: [] for name in legs}
+    for _ in range(rounds):
+        for name, (step, x0) in legs.items():
+            def chain(n, step=step, x0=x0, name=name):
+                z = x0
+                for _ in range(n):
+                    z = step(z)
+                last[name] = z
+                return z
+            times[name].append(round_ms(dev, chain, reps))
+    return times, last
+
+
 class Counters:
     """Host syncs and LSAP launches from `start()` to `stop(frames)`."""
 

@@ -2,8 +2,10 @@
 against its plain version and scipy, the fused depthwise-separable kernel
 against its plain version, their wrappers' checks, the tracker, the
 MOG2 background subtraction and the frame step on the card against the
-CPU, and the quantized paths' exact integer contractions and executor on
-the card against the CPU. They skip without a card, and
+CPU, the quantized paths' exact integer contractions and executor on
+the card against the CPU, tools/probe_int8.py's int8 steps card == CPU
+and the w8a8 MARS's two int8 contractions (impl dot and conv) equal on
+the card. They skip without a card, and
 import nothing of JAX. On the GPU machine:
 
     python -m pytest -m gpu tests/test_torch_*.py
@@ -379,3 +381,63 @@ def test_multistream_engine_on_the_card(cuda):
                                           getattr(o, name).cpu().numpy())
         np.testing.assert_array_equal(snaps.valid[s].cpu().numpy(),
                                       sn.valid.cpu().numpy())
+
+
+def test_probe_int8_legs_card_equal_cpu(cuda):
+    """tools/probe_int8.py's int8 steps (int8_matmul / im2col + int8_matmul,
+    `>> 7` to int8) on the card equal the CPU's exactly, chained twice, on
+    seeded inputs: the square product (rows past 16 and not a multiple of
+    8 padded) and the JAX tool's three conv shapes on two images."""
+    from deepdish_tpu_torch.tools import probe_int8 as p
+    cpu = torch.device("cpu")
+    rng = np.random.RandomState(9)
+    n = 1024
+    kb, ki = p.matmul_weights(n)
+    x8 = torch.from_numpy(rng.randint(-127, 128, (37, n)).astype(np.int8))
+    steps = [p.matmul_steps(kb, ki, d)[1] for d in (cuda, cpu)]
+    got = steps[0](steps[0](x8.to(cuda))).cpu()
+    assert torch.equal(got, steps[1](steps[1](x8)))
+    for _, _, hw, cin, cout, k in p.CONVS:
+        kb, ki = p.conv_weights(cin, cout, k)
+        x8 = torch.from_numpy(rng.randint(-127, 128, (2, hw, hw, cin))
+                              .astype(np.int8))
+        steps = [p.conv_steps(kb, ki, d)[1] for d in (cuda, cpu)]
+        got = steps[0](steps[0](x8.to(cuda))).cpu()
+        assert torch.equal(got, steps[1](steps[1](x8)))
+
+
+def test_mars_q_dot_equals_conv_on_the_card(cuda):
+    """The w8a8 MARS's two int8 contractions on the card: impl "dot"
+    (im2col + torch._int_mm) and "conv" (float64 direct convolution, cuDNN
+    off) give equal int32 accumulators, equal to the CPU's on the card's
+    int8 inputs, and bit-equal bf16 features."""
+    from deepdish_tpu_torch.models import mars_q
+    from deepdish_tpu_torch.models.layers import flax_default_init_
+    from deepdish_tpu_torch.models.mars import INPUT_SHAPE, MarsNet
+    net = MarsNet()
+    flax_default_init_(net, torch.Generator().manual_seed(0))
+    q = mars_q.quantize_mars(net.state_dict(),
+                             mars_q.default_calibration_patches(16))
+    qp = {d.type: mars_q.prepare_qparams(q, d)
+          for d in (cuda, torch.device("cpu"))}
+    x = torch.from_numpy(np.random.RandomState(10).uniform(
+        0, 255, (4,) + INPUT_SHAPE).astype(np.float32)).to(cuda)
+    accs, feats = {}, {}
+    for impl in ("dot", "conv"):
+        accs[impl] = {}
+        feats[impl] = mars_q.mars_forward(
+            qp["cuda"]["base"], x, compute_dtype=torch.bfloat16,
+            qparams=qp["cuda"], impl=impl, acc_sink=accs[impl])
+    assert torch.equal(feats["dot"], feats["conv"])
+    for path, (v8, acc) in accs["dot"].items():
+        assert torch.equal(acc, accs["conv"][path][1]), path
+        k8 = q["wq"][path]
+        if v8.dim() == 4:
+            stride = 2 if acc.shape[1] < v8.shape[1] else 1
+            want = mars_q.conv_i8(v8.cpu(), qp["cpu"]["wmat"][path],
+                                  k8.shape[0], k8.shape[1], stride,
+                                  k8.shape[3])
+        else:
+            from deepdish_tpu_torch.models.qgraph import int8_matmul
+            want = int8_matmul(v8.cpu(), qp["cpu"]["wmat"][path], k8.shape[1])
+        assert torch.equal(acc.cpu(), want), path

@@ -28,7 +28,10 @@ _HOST_LAZY = [os.path.join(PKG, *p) for p in (
     ("tools", "mot_features.py"), ("tools", "bench.py"),
     ("tools", "profile_components.py"), ("tools", "flops_report.py"),
     ("tools", "profile_micro.py"), ("tools", "coldstart_probe.py"),
-    ("tools", "zoo_validate.py"))]
+    ("tools", "zoo_validate.py"), ("tools", "probe_int8.py"),
+    ("tools", "profile_mars_int8.py"), ("tools", "round4_ab_interleaved.py"),
+    ("tools", "probe_grouped_conv.py"), ("tools", "profile_mars_width.py"),
+    ("tools", "decode_probe.py"))]
 
 
 def _sources():
@@ -58,7 +61,13 @@ def test_sources_found():
                    ("tools", "bench.py"), ("tools", "profile_components.py"),
                    ("tools", "flops_report.py"), ("tools", "profile_micro.py"),
                    ("tools", "coldstart_probe.py"),
-                   ("tools", "zoo_validate.py"), ("utils", "flops.py")):
+                   ("tools", "zoo_validate.py"), ("utils", "flops.py"),
+                   ("tools", "probe_int8.py"),
+                   ("tools", "profile_mars_int8.py"),
+                   ("tools", "round4_ab_interleaved.py"),
+                   ("tools", "probe_grouped_conv.py"),
+                   ("tools", "profile_mars_width.py"),
+                   ("tools", "decode_probe.py")):
         assert os.path.join("deepdish_tpu_torch", *module) in names
     assert len(names) > 30
 
@@ -166,6 +175,12 @@ def test_import_pulls_no_jax():
             "deepdish_tpu_torch.tools.profile_micro, "
             "deepdish_tpu_torch.tools.coldstart_probe, "
             "deepdish_tpu_torch.tools.zoo_validate, "
+            "deepdish_tpu_torch.tools.probe_int8, "
+            "deepdish_tpu_torch.tools.profile_mars_int8, "
+            "deepdish_tpu_torch.tools.round4_ab_interleaved, "
+            "deepdish_tpu_torch.tools.probe_grouped_conv, "
+            "deepdish_tpu_torch.tools.profile_mars_width, "
+            "deepdish_tpu_torch.tools.decode_probe, "
             "deepdish_tpu_torch.utils.flops\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'deepdish_tpu', 'tools', '_timing', 'cv2', "
@@ -182,8 +197,12 @@ def test_entry_points_need_cuda_unless_cpu():
                                            create_detector)
     from deepdish_tpu_torch.pipeline import FrameStep
     from deepdish_tpu_torch.tools import bench, probe_dsconv
-    from deepdish_tpu_torch.tools import (coldstart_probe, flops_report,
-                                          profile_components, profile_micro,
+    from deepdish_tpu_torch.tools import (coldstart_probe, decode_probe,
+                                          flops_report, probe_grouped_conv,
+                                          probe_int8, profile_components,
+                                          profile_mars_int8,
+                                          profile_mars_width, profile_micro,
+                                          round4_ab_interleaved,
                                           zoo_validate)
     cfg = pt.TrackerConfig(max_tracks=4, max_detections=2, feature_dim=128,
                            gallery_size=8, pending_size=2)
@@ -216,7 +235,13 @@ def test_entry_points_need_cuda_unless_cpu():
                  lambda: profile_micro.main([]),
                  lambda: coldstart_probe.main([]),
                  lambda: coldstart_probe.main(["--cold"]),
-                 lambda: zoo_validate.main(["detect.tflite"])):
+                 lambda: zoo_validate.main(["detect.tflite"]),
+                 lambda: probe_int8.main([]),
+                 lambda: profile_mars_int8.main([]),
+                 lambda: round4_ab_interleaved.main(["--mars-cap32"]),
+                 lambda: probe_grouped_conv.main([]),
+                 lambda: profile_mars_width.main([]),
+                 lambda: decode_probe.main([])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 
