@@ -1,0 +1,134 @@
+"""Masked matching stages: the appearance cascade and the IoU association.
+
+Port of deepdish_tpu/tracker/matching.py (`masked_min_cost_matching` :46,
+`matching_cascade` :105, `iou_stage` :163). Each stage gathers a submatrix
+of the frame's (T, D) cost matrix into a square capacity-K problem, ordered
+the way the reference orders its index lists (so the assignment's tie rules
+see the same problem), solves it with `ops.assignment.solve_lsap` (the CUDA
+kernel on the card), and scatters accepted matches back to slot space.
+
+The JAX package's `while_loop` over cascade levels and its `lax.cond`
+around the IoU stage become Python control flow here; each of their
+decisions is one counted host sync (device.sync_*).
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import _device as devmod
+from ..assignment import solve_lsap
+from ..onehot import scatter_rows_unique, sort_values, stable_argsort
+from .types import CONFIRMED, TENTATIVE, TrackerConfig
+
+_BIGKEY = 2 ** 30
+_PAD_COST = 7e7
+
+
+def masked_min_cost_matching(cost_full: torch.Tensor,
+                             row_mask: torch.Tensor,
+                             row_key: torch.Tensor,
+                             col_mask: torch.Tensor,
+                             max_distance: float,
+                             K: int):
+    """One min_cost_matching (linear_assignment.py:11-75) over the masked
+    rows/cols of a (T, D) cost matrix. Rows are ordered by row_key, columns
+    by ascending detection index. Returns (matched col per row slot (T,)
+    int32, matched per col (D,) bool)."""
+    T, D = cost_full.shape
+    dev = cost_full.device
+    n_rows = row_mask.sum().to(torch.int32)
+    n_cols = col_mask.sum().to(torch.int32)
+
+    d_ids = torch.arange(D, dtype=torch.int32, device=dev)
+    row_perm = stable_argsort(torch.where(row_mask, row_key, _BIGKEY))
+    col_perm = stable_argsort(torch.where(col_mask, d_ids, _BIGKEY))
+    rp = (torch.cat([row_perm, row_perm.new_zeros(K - T)]) if K > T
+          else row_perm[:K])
+    cp = (torch.cat([col_perm, col_perm.new_zeros(K - D)]) if K > D
+          else col_perm[:K])
+    sub = cost_full[rp][:, cp]                                  # (K, K)
+    # the reference's clamp before solving (linear_assignment.py:57)
+    sub = torch.where(sub > max_distance,
+                      torch.full_like(sub, max_distance + 1e-5), sub)
+    ri = torch.arange(K, dtype=torch.int32, device=dev)
+    real = (ri[:, None] < n_rows) & (ri[None, :] < n_cols)
+    sub = torch.where(real, sub, torch.full_like(sub, _PAD_COST))
+
+    # sizes stay on the device: the kernel reads them there, no host sync
+    sizes = torch.stack([n_rows, n_cols])[None]
+    col4row = solve_lsap(sub[None].contiguous(), sizes)[0].long()
+
+    # accept matches with cost <= max_distance (linear_assignment.py:70-74)
+    got_col = col4row >= 0
+    c4r = col4row.clamp(0, K - 1)
+    sub_cost = sub.gather(1, c4r[:, None])[:, 0]
+    accept = got_col & (ri < n_rows) & (sub_cost <= max_distance)
+    det_idx = cp[c4r].to(torch.int32)
+
+    scatter_slot = torch.where(accept, rp, T)
+    matched_col = scatter_rows_unique(
+        torch.full((T,), -1, dtype=torch.int32, device=dev), scatter_slot,
+        det_idx)
+    col_scatter = torch.where(accept, det_idx.long(), D)
+    col_matched = (col_scatter[:, None] == d_ids[None, :]).any(0)
+    return matched_col, col_matched
+
+
+def matching_cascade(cfg: TrackerConfig, app_cost: torch.Tensor,
+                     state: torch.Tensor, track_id: torch.Tensor,
+                     time_since_update: torch.Tensor,
+                     det_valid: torch.Tensor):
+    """Age-levelled appearance cascade (linear_assignment.py:78-141) over the
+    distinct time_since_update values of confirmed tracks, ascending and
+    capped at max_age; stops early once no detection is left unmatched.
+    Returns (matched_det (T,) int32, det_taken (D,) bool)."""
+    T, D = app_cost.shape
+    K = max(T, D)
+    dev = app_cost.device
+    confirmed = state == CONFIRMED
+    big = 1 << 30
+    eligible = torch.where(confirmed & (time_since_update <= cfg.max_age),
+                           time_since_update, big)
+    sorted_tsu = sort_values(eligible)
+    prev = torch.cat([sorted_tsu.new_full((1,), -1), sorted_tsu[:-1]])
+    distinct = torch.where((sorted_tsu != prev) & (sorted_tsu < big),
+                           sorted_tsu, big)
+    levels = sort_values(distinct)
+    n_levels = devmod.sync_int((levels < big).sum())
+
+    matched = torch.full((T,), -1, dtype=torch.int32, device=dev)
+    taken = torch.zeros((D,), dtype=torch.bool, device=dev)
+    for lv_i in range(n_levels):
+        if not devmod.sync_bool((det_valid & ~taken).any()):
+            break
+        row_mask = confirmed & (time_since_update == levels[lv_i])
+        mc, cm = masked_min_cost_matching(
+            app_cost, row_mask, track_id, det_valid & ~taken,
+            cfg.max_cosine_distance, K)
+        matched = torch.where(mc >= 0, mc, matched)
+        taken = taken | cm
+    return matched, taken
+
+
+def iou_stage(cfg: TrackerConfig, iou_cost: torch.Tensor,
+              state: torch.Tensor, track_id: torch.Tensor,
+              time_since_update: torch.Tensor,
+              cascade_matched: torch.Tensor, det_valid: torch.Tensor,
+              det_taken: torch.Tensor):
+    """IoU association of unconfirmed and just-missed confirmed tracks
+    (tracker.py:119-129). Returns (matched_det (T,), det_taken (D,))."""
+    T, D = iou_cost.shape
+    K = max(T, D)
+    confirmed = state == CONFIRMED
+    tentative = state == TENTATIVE
+    unmatched_conf = confirmed & (cascade_matched < 0)
+    row_mask = tentative | (unmatched_conf & (time_since_update == 1))
+    # reference order: unconfirmed first (creation order), then the
+    # unmatched confirmed tsu == 1 ones (ascending)
+    row_key = torch.where(tentative, track_id, track_id + _BIGKEY // 2)
+    col_mask = det_valid & ~det_taken
+    if not devmod.sync_bool(row_mask.any() & col_mask.any()):
+        return cascade_matched, det_taken
+    mc, cm = masked_min_cost_matching(iou_cost, row_mask, row_key, col_mask,
+                                      cfg.max_iou_distance, K)
+    return torch.where(mc >= 0, mc, cascade_matched), det_taken | cm
