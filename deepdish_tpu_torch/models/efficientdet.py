@@ -31,9 +31,8 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
-from ..device import resolve_device
+from ..device import resolve_device, span
 from ..ops import nms as nmsops
 from ..ops.onehot import gather_rows, stable_argsort, topk_desc
 from .layers import BatchNorm, SameConv2d, flax_default_init_, max_pool_same
@@ -331,9 +330,9 @@ class EfficientDetLite0Detector:
         """(N, 320, 320, 3) -> fixed-capacity (boxes_xyxy (N, K, 4) pixels,
         classes (N, K) int32, scores (N, K), valid (N, K)), K =
         max_outputs, kept boxes first in score order."""
-        with record_function("efficientdet.net"):
+        with span("efficientdet.net"):
             box_enc, logits = self.net(images_resized)
-        with record_function("efficientdet.decode_nms"):
+        with span("efficientdet.decode_nms"):
             probs = torch.sigmoid(logits)
             scores, classes = probs.amax(-1), probs.argmax(-1)
             top_scores, idx = topk_desc(scores, self.top_k)

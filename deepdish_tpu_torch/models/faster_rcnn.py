@@ -48,9 +48,8 @@ import numpy as np
 import torch
 import torch.nn.functional as nnf
 from torch import nn
-from torch.profiler import record_function
 
-from ..device import resolve_device
+from ..device import resolve_device, span
 from ..ops.nms import _greedy
 from ..ops.onehot import gather_rows, stable_argsort, topk_desc
 from .layers import BatchNorm, SameConv2d, flax_default_init_, max_pool_same
@@ -261,10 +260,10 @@ class FasterRCNNNet(nn.Module):
         self.channel_means = torch.tensor(CHANNEL_MEANS, device=dev)
 
     def forward(self, image: torch.Tensor, with_intermediates: bool = False):
-        with record_function("frcnn.trunk"):
+        with span("frcnn.trunk"):
             fmap = self.trunk(image)
         inter = {"fmap": fmap}
-        with record_function("frcnn.rpn_nms"):
+        with span("frcnn.rpn_nms"):
             proposals, prop_valid = self.proposals(fmap, inter)
         out = self.second_stage(fmap, proposals, prop_valid, inter)
         if with_intermediates:
@@ -288,7 +287,7 @@ class FasterRCNNNet(nn.Module):
         detections; fills `inter` (probs2, box2, prop_ychw) when given."""
         cfg = self.cfg
         B, P = proposals.shape[:2]
-        with record_function("frcnn.crop_block4"):
+        with span("frcnn.crop_block4"):
             crops = crop_and_resize(fmap, proposals, cfg.crop_size,
                                     cfg.crop_size)
             crops = crops.reshape((B * P,) + crops.shape[2:])
@@ -298,7 +297,7 @@ class FasterRCNNNet(nn.Module):
             cls = self.cls_head(pooled).float().reshape(B, P, nc + 1)
             box = self.box_head(pooled).float().reshape(B, P, nc, 4)
 
-        with record_function("frcnn.second_nms"):
+        with span("frcnn.second_nms"):
             probs = torch.softmax(cls, dim=-1)[..., 1:]   # strip background
             py = (proposals[..., 0] + proposals[..., 2]) / 2
             px = (proposals[..., 1] + proposals[..., 3]) / 2

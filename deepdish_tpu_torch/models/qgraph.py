@@ -60,9 +60,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
-from ..device import resolve_device
+from ..device import resolve_device, span
 from ..ops import intmath
 from ..utils import flops
 from . import tflite_meta
@@ -699,7 +698,7 @@ class QGraphExecutor:
         key = qop.attrs["kkey"]
         ks = self.consts[f"{key}/kernel"]                # (kh*kw, C) int32
         xs = self._xs(qop, x) - qop.attrs["in_zp"]
-        with record_function("qgraph.depthwise"):
+        with span("qgraph.depthwise"):
             taps, _, _ = self._taps(qop, xs)
             flops.report(flops.conv(taps[0].numel(), len(taps), 1))
             acc = taps[0] * ks[0]
@@ -1034,7 +1033,7 @@ class QuantizedSSDDetector:
     def heads(self, images: torch.Tensor):
         """(box encodings (N, A, 4), class scores (N, A, C)) float32: the
         integer graph's head tensors, exactly dequantized."""
-        with record_function("qssd.net"):
+        with span("qssd.net"):
             outs = self.executor.dequantize_outputs(
                 self.executor.apply(self.quantize_input(images)))
         n = images.shape[0]
@@ -1064,7 +1063,7 @@ class QuantizedSSDDetector:
         from .efficientdet import apply_result_filter
         from .ssd_mobilenet import decode_boxes, postprocess_detections
         box_enc, scores = self.heads(images_resized)
-        with record_function("qssd.decode_nms"):
+        with span("qssd.decode_nms"):
             probs = scores if self._heads_are_probs else torch.sigmoid(scores)
             strip = (scores.shape[-1] == self._pp_num_classes + 1
                      if self._pp_num_classes is not None
@@ -1120,10 +1119,10 @@ class QuantizedYOLOv5Detector:
     def detect(self, images_resized: torch.Tensor, orig_w: float,
                orig_h: float):
         from .yolov5 import postprocess_heads
-        with record_function("qyolov5.net"):
+        with span("qyolov5.net"):
             outs = self.executor.dequantize_outputs(
                 self.executor.apply(self.quantize_input(images_resized)))
-        with record_function("qyolov5.decode_nms"):
+        with span("qyolov5.decode_nms"):
             # per-level heads ordered largest-spatial (stride 8) first
             heads = sorted(outs, key=lambda h: -int(h.shape[1]))
             return postprocess_heads(heads, self.width, orig_w, orig_h,

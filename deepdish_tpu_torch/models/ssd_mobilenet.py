@@ -20,9 +20,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
-from ..device import resolve_device
+from ..device import resolve_device, span
 from ..ops import nms as nmsops
 from ..ops.onehot import stable_argsort, topk_desc
 from .layers import BatchNorm, SameConv2d, flax_default_init_
@@ -269,9 +268,9 @@ class SSDMobileNetDetector:
         """(N, 300, 300, 3) float/uint8 -> fixed-capacity (boxes_xyxy
         (N, K, 4) in original pixels, classes (N, K) int32, scores (N, K),
         valid (N, K) bool), K = max_outputs."""
-        with record_function("ssd.net"):
+        with span("ssd.net"):
             box_enc, logits = self._apply_net(images_resized)
-        with record_function("ssd.decode_nms"):
+        with span("ssd.decode_nms"):
             boxes = decode_boxes(box_enc, self.anchors, self.box_scale)
             probs = torch.sigmoid(logits)[..., 1:]      # strip background
             return postprocess_detections(

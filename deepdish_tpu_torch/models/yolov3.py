@@ -28,9 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
-from ..device import resolve_device
+from ..device import resolve_device, span
 from ..ops import nms as nmsops
 from ..ops.onehot import gather_rows, stable_argsort, topk_desc
 from .layers import BatchNorm, flax_default_init_
@@ -208,9 +207,9 @@ class YOLOv3Detector:
         """(N, S, S, 3) letterboxed frames -> fixed-capacity (boxes_xyxy
         (N, K, 4) frame pixels, classes (N, K) int32, scores (N, K), valid
         (N, K)), K = max_outputs, kept boxes first in score order."""
-        with record_function("yolov3.net"):
+        with span("yolov3.net"):
             heads = self.net(images_resized)
-        with record_function("yolov3.decode_nms"):
+        with span("yolov3.decode_nms"):
             rows = torch.cat([decode_head(h, a, self.input_size)
                               for h, a in zip(heads, self.anchors)], -2)
             conf = rows[..., 5:] * rows[..., 4:5]

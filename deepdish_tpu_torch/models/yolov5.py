@@ -25,9 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
-from ..device import resolve_device
+from ..device import resolve_device, span
 from ..ops.onehot import gather_rows, topk_desc
 from .layers import BatchNorm, flax_default_init_
 from .preprocess import default_compute_dtype
@@ -235,9 +234,9 @@ class YOLOv5Detector:
         """(N, S, S, 3) -> fixed-capacity (boxes_xyxy (N, K, 4) pixels,
         classes (N, K) int32, scores (N, K), valid (N, K)), K =
         max_outputs."""
-        with record_function("yolov5.net"):
+        with span("yolov5.net"):
             heads = self.net(images_resized)
-        with record_function("yolov5.decode_nms"):
+        with span("yolov5.decode_nms"):
             return postprocess_heads(heads, self.input_size, orig_w, orig_h,
                                      score_threshold=self.score_threshold,
                                      max_outputs=self.max_outputs)

@@ -44,7 +44,7 @@ def _greedy(overlap: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
     keep_r = valid_r
     while True:
         new = valid_r & ~(s & keep_r[..., :, None]).any(-2)
-        if not devmod.sync_bool((new != keep_r).any()):
+        if not devmod.sync_bool((new != keep_r).any(), "nms"):
             break
         keep_r = new
 

@@ -16,7 +16,9 @@ axis inside a `shard_map`. Here a call runs, on each device:
   * each stream's tracker over its own F frames (`FrameStep._track_frames`).
 The tracker stays per stream: S * F sequential `tracker.step` calls, each
 LSAP launch with a batch of one matrix. The results per stream are those
-of `FrameStep.run_chunk` on that stream alone.
+of `FrameStep.run_chunk` on that stream alone. A call of
+`MultiStreamEngine` runs in the profiler range "framestep.call", its I420
+conversion in "framestep.yuv_rgb" (`device.span`).
 
 A mesh may name one device several times (several shards on one card).
 Where it names a device other than the FrameStep's, the engine works on a
@@ -33,7 +35,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, span
 from ..ops import colorspace
 from ..pipeline.framestep import FrameStep, PipelineState, _stack
 
@@ -232,22 +234,25 @@ class MultiStreamEngine:
             raise ValueError(f"got {len(frames)} streams' frames and "
                              f"{len(states.streams)} states, engine built "
                              f"for {self.n_streams}")
-        k = self.per_shard
-        new, outs, snaps = [], [], []
-        for d, fs in enumerate(self._steps):
-            lo = d * k
-            with on(fs.device):
-                x = fs._frames(frames[lo:lo + k])
-                if yuv:
-                    x = colorspace.yuv420_to_rgb_u8(x, fs.frame_h,
-                                                    fs.frame_w)
-                st, out, snap = streams_chunk(fs, states.streams[lo:lo + k],
-                                              x)
-            new += st
-            outs.append(out)
-            snaps.append(snap)
-        return (StreamStates(tuple(new)), gather(outs, self.out_device),
-                gather(snaps, self.out_device))
+        with span("framestep.call"):
+            k = self.per_shard
+            new, outs, snaps = [], [], []
+            for d, fs in enumerate(self._steps):
+                lo = d * k
+                with on(fs.device):
+                    x = fs._frames(frames[lo:lo + k])
+                    if yuv:
+                        with span("framestep.yuv_rgb"):
+                            x = colorspace.yuv420_to_rgb_u8(x, fs.frame_h,
+                                                            fs.frame_w)
+                    st, out, snap = streams_chunk(
+                        fs, states.streams[lo:lo + k], x)
+                new += st
+                outs.append(out)
+                snaps.append(snap)
+            return (StreamStates(tuple(new)),
+                    gather(outs, self.out_device),
+                    gather(snaps, self.out_device))
 
     def step(self, states: StreamStates, frames):
         """frames: (S, H, W, 3) uint8. Returns (states, outs, snaps) with

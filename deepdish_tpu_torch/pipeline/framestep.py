@@ -30,12 +30,24 @@ pieces themselves, to batch detect + encode over several streams' frames. `run_c
 first. `detect_only` and `encode_track` split `step` in two for CVAT
 mode, where the host merges annotations into the detections in between.
 
-Each stage runs inside a `torch.profiler.record_function` range
+Each stage runs inside a profiler range opened by `device.span`
 ("framestep.upload", "framestep.bgsub", "framestep.resize",
-"<family>.net", "<family>.decode_nms" (ssd, yolov5, yolov3, efficientdet),
-"framestep.filter_nms", "framestep.crop_mars", "framestep.tracker"), so
-a profiler run splits a frame's time by stage; without a profiler the
-ranges record nothing.
+"<family>.net", "<family>.decode_nms" (ssd, yolov5, yolov3, efficientdet;
+Faster R-CNN's are "frcnn.trunk", "frcnn.rpn_nms", "frcnn.crop_block4",
+"frcnn.second_nms"), "framestep.filter_nms", "framestep.crop_mars",
+"framestep.tracker"), so a profiler run splits a frame's time by stage;
+without a profiler the ranges cost one flag check each and record nothing.
+Nested in them:
+  * in "framestep.tracker", the tracker's stages, which together cover
+    `tracker.step`: "framestep.trk_predict" (Kalman predict and the cost
+    matrices), "framestep.trk_cascade" (the matching cascade) holding one
+    "framestep.trk_level" per cascade level solved (one LSAP launch each),
+    "framestep.trk_iou" (the IoU stage) and "framestep.trk_update" (Kalman
+    update, lifecycle, new tracks, the gallery);
+  * at each host sync, "framestep.sync_<site>" (`device.sync_*`: "trk" in
+    the tracker's stages, "nms" in the NMS ranges);
+  * in a `parallel.MultiStreamEngine` call, "framestep.call" around the
+    whole call and "framestep.yuv_rgb" around its I420 conversion.
 """
 from __future__ import annotations
 
@@ -44,10 +56,9 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 import torch.nn.functional as nnf
-from torch.profiler import record_function
 
 from .. import tracker as tt
-from ..device import resolve_device
+from ..device import resolve_device, span
 from ..models.preprocess import crop_resize_patches_mxu, resize_bilinear_mxu
 from ..ops import bgsub
 from ..ops import boxes as boxops
@@ -128,7 +139,7 @@ class FrameStep:
     # ---- pieces ----
 
     def _frames(self, frames) -> torch.Tensor:
-        with record_function("framestep.upload"):
+        with span("framestep.upload"):
             t = torch.as_tensor(frames)
             return t.to(self.device, non_blocking=True)
 
@@ -138,7 +149,7 @@ class FrameStep:
         cfg = self.step_cfg
         if not cfg.background_subtraction:
             return bg, None, frame
-        with record_function("framestep.bgsub"):
+        with span("framestep.bgsub"):
             bg, mask = bgsub.update(bg, frame)
             fg = (mask != 0).to(torch.int32)
             # int32 cumsums give int64: exact counts at any frame size
@@ -219,11 +230,11 @@ class FrameStep:
     def _postprocess_raw(self, frame, integral, xyxy, classes, scores,
                          valid):
         """One frame's tail after the detector: filters, NMS, crop+embed."""
-        with record_function("framestep.filter_nms"):
+        with span("framestep.filter_nms"):
             snap = self._filter_and_nms(integral, xyxy, classes, scores,
                                         valid)
         E = self._enc_cap
-        with record_function("framestep.crop_mars"):
+        with span("framestep.crop_mars"):
             feats_e, _ok = self.encoder.encode_boxes(frame, snap.tlwh[:E],
                                                      snap.valid[:E])
         dets = tt.Detections(tlwh=snap.tlwh, confidence=snap.score,
@@ -237,7 +248,7 @@ class FrameStep:
         (F, height, width, 3): a bilinear resize, or for a letterboxing
         detector an aspect-preserving resize padded with 128."""
         det = self.detector
-        with record_function("framestep.resize"):
+        with span("framestep.resize"):
             if self._letterbox is None:
                 return resize_bilinear_mxu(frames, det.height, det.width,
                                            det.compute_dtype)
@@ -258,9 +269,9 @@ class FrameStep:
         F = frames.shape[0]
         E = self._enc_cap
         raw = self._detect_raw(frames)
-        with record_function("framestep.filter_nms"):
+        with span("framestep.filter_nms"):
             snaps = self._filter_and_nms(integrals, *raw)
-        with record_function("framestep.crop_mars"):
+        with span("framestep.crop_mars"):
             patches, ok = crop_resize_patches_mxu(
                 frames, snaps.tlwh[:, :E], snaps.valid[:, :E],
                 self.encoder.height, self.encoder.width,
@@ -276,7 +287,7 @@ class FrameStep:
         return dets, snaps
 
     def _track(self, state: PipelineState, bg, dets):
-        with record_function("framestep.tracker"):
+        with span("framestep.tracker"):
             table, out = tt.step(self.tracker_cfg, state.table, dets)
         return PipelineState(table, bg), out
 
@@ -335,7 +346,7 @@ class FrameStep:
         frame = self._frames(frame_rgb)
         bg, integral, frame = self._apply_bgsub(state.bg, frame)
         raw = tuple(r[0] for r in self._detect_raw(frame[None]))
-        with record_function("framestep.filter_nms"):
+        with span("framestep.filter_nms"):
             snap = self._filter_and_nms(integral, *raw)
         return bg, snap
 
@@ -349,7 +360,7 @@ class FrameStep:
         frame = self._frames(frame_rgb)
         tlwh, labels, scores, valid = (self._frames(a) for a in
                                        (tlwh, labels, scores, valid))
-        with record_function("framestep.crop_mars"):
+        with span("framestep.crop_mars"):
             feats, _ok = self.encoder.encode_boxes(frame, tlwh, valid)
         dets = tt.Detections(tlwh=tlwh, confidence=scores, label=labels,
                              feature=feats, valid=valid)

@@ -165,7 +165,8 @@ def to_host(*tuples):
     into one buffer on the device first)."""
     fields = [t for nt in tuples for t in nt]
     flat = devmod.sync_numpy(torch.cat(
-        [t.contiguous().reshape(-1).view(torch.uint8) for t in fields]))
+        [t.contiguous().reshape(-1).view(torch.uint8) for t in fields]),
+        "outputs")
     arrays, at = [], 0
     for t in fields:
         dtype = np.dtype(str(t.dtype).replace("torch.", ""))

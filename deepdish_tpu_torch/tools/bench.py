@@ -107,7 +107,7 @@ def sync(dev: torch.device) -> None:
 def read(dev: torch.device, t: torch.Tensor) -> np.ndarray:
     """The forced host read that ends a timed unit (one counted sync)."""
     from ..device import sync_numpy
-    out = sync_numpy(t)
+    out = sync_numpy(t, "outputs")
     sync(dev)
     return out
 

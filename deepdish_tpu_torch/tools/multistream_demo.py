@@ -97,10 +97,10 @@ def main(argv=None):
                 break
             if F == 1:
                 states, outs, snaps = eng.step(states, frames[:, 0])
-                outs_np = [sync_numpy(x)[:, None] for x in outs]
+                outs_np = [sync_numpy(x, "outputs")[:, None] for x in outs]
             else:
                 states, outs, snaps = eng.step_chunk(states, frames)
-                outs_np = [sync_numpy(x) for x in outs]
+                outs_np = [sync_numpy(x, "outputs") for x in outs]
             for i in range(S):
                 for k in range(int(counts[i])):
                     counters[i].process(

@@ -21,7 +21,9 @@ synchronize before the read (after one warm-up call); on the CPU by the
 host clock. Then one torch.profiler window over run_chunk gives each
 profiler range's host and device ms a frame (`framestep.*` and the
 detector's `<family>.*`), the device's idle share and the ten device
-kernels that take the most time.
+kernels that take the most time. A range that runs inside another (the
+tracker's `framestep.trk_*` stages, the `framestep.sync_*` host syncs) is
+shown in brackets after it, as a part of it.
 
   python -m deepdish_tpu_torch.tools.profile_components [--chunk 32] \
       [--reps 32] [--model ssd_mobilenet|yolov5|yolov3|efficientdet|
@@ -136,13 +138,23 @@ def components(fs, frames, reps):
     return ms, {"snaps": snaps, "feats": feats}
 
 
+def _enclosing_range(e):
+    """The innermost profiler range around event e, or None."""
+    p = e.cpu_parent
+    while p is not None and not p.is_user_annotation:
+        p = p.cpu_parent
+    return p
+
+
 def profiled(fn, n, dev, stages=None, top=10):
     """torch.profiler over fn(), which does n frames' work: per frame, each
     profiler range's host time and device time (`stages`, or every range
-    the run recorded), the device's busy and wall time (CUDA kernel and
-    copy time over the wall; the profiler's own cost is in the wall), the
-    idle share (None when no device time was recorded) and the `top`
-    device kernels by time."""
+    the run recorded), the part of them run inside another of the ranges
+    (`inside`: name -> {enclosing range: [host ms, device ms]}, e.g. the
+    tracker's `framestep.trk_*` and the `framestep.sync_*` ranges), the
+    device's busy and wall time (CUDA kernel and copy time over the wall;
+    the profiler's own cost is in the wall), the idle share (None when no
+    device time was recorded) and the `top` device kernels by time."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if dev.type == "cuda":
@@ -158,15 +170,24 @@ def profiled(fn, n, dev, stages=None, top=10):
                                      if e.is_user_annotation))
     host = dict.fromkeys(stages, 0.0)
     device = dict.fromkeys(stages, 0.0)
+    inside = {}
     for e in events:
         if e.name in host:
-            host[e.name] += e.cpu_time_total / n / 1e3
-            device[e.name] += e.device_time_total / n / 1e3
+            ms = (e.cpu_time_total / n / 1e3, e.device_time_total / n / 1e3)
+            host[e.name] += ms[0]
+            device[e.name] += ms[1]
+            outer = _enclosing_range(e)
+            if outer is not None and outer.name in host:
+                acc = inside.setdefault(e.name, {}).setdefault(
+                    outer.name, [0.0, 0.0])
+                acc[0] += ms[0]
+                acc[1] += ms[1]
     kernels = [e for e in prof.key_averages()
                if e.device_type.name == "CUDA" and not e.is_user_annotation]
     busy_us = sum(e.self_device_time_total for e in kernels)
     return {"n": n, "stages": list(stages), "host_ms": host,
-            "device_ms": device, "busy_us": busy_us, "wall_us": wall_us,
+            "device_ms": device, "inside": inside, "busy_us": busy_us,
+            "wall_us": wall_us,
             "idle_share": 1 - busy_us / wall_us if busy_us > 0 else None,
             "top_kernels": [
                 (e.key, e.self_device_time_total / n)
@@ -176,13 +197,20 @@ def profiled(fn, n, dev, stages=None, top=10):
 
 
 def split_lines(r, tag, what, name_width=48):
-    """A `profiled` result as text: the stage split, then the device's
-    busy and idle share and its top kernels (µs a frame)."""
+    """A `profiled` result as text: the stage split (a nested range in
+    brackets after its enclosing one, a part of it and not a stage of its
+    own), then the device's busy and idle share and its top kernels (µs a
+    frame)."""
     n = r["n"]
+
+    def item(k, host, device):
+        parts = [item(c, *by[k]) for c, by in r["inside"].items() if k in by]
+        return (f"{k} {host:.3f} / {device:.3f}" +
+                (" [" + ", ".join(parts) + "]" if parts else ""))
     lines = [f"[{tag}] stage split of {what} (torch.profiler ranges, "
              "ms/frame host / device): " + ", ".join(
-                 f"{k} {r['host_ms'][k]:.3f} / {r['device_ms'][k]:.3f}"
-                 for k in r["stages"])]
+                 item(k, r["host_ms"][k], r["device_ms"][k])
+                 for k in r["stages"] if k not in r["inside"])]
     if r["idle_share"] is None:
         lines.append(f"[{tag}] profiler: no device time recorded (not "
                      "measured)")
@@ -258,6 +286,7 @@ def main(argv=None, framestep=None):
                                      for k, v in ms.items()},
         "stage_host_ms_per_frame": split["host_ms"],
         "stage_device_ms_per_frame": split["device_ms"],
+        "stage_inside_ms_per_frame": split["inside"],
         "busy_ms_per_frame": split["busy_us"] / chunk / 1e3,
         "wall_ms_per_frame": split["wall_us"] / chunk / 1e3,
         "idle_share": split["idle_share"],

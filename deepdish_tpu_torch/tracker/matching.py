@@ -9,7 +9,9 @@ kernel on the card), and scatters accepted matches back to slot space.
 
 The JAX package's `while_loop` over cascade levels and its `lax.cond`
 around the IoU stage become Python control flow here; each of their
-decisions is one counted host sync (device.sync_*).
+decisions is one counted host sync (device.sync_*, site "trk"). Each
+cascade level solved runs in the profiler range "framestep.trk_level",
+which holds its one LSAP launch.
 """
 from __future__ import annotations
 
@@ -94,19 +96,20 @@ def matching_cascade(cfg: TrackerConfig, app_cost: torch.Tensor,
     distinct = torch.where((sorted_tsu != prev) & (sorted_tsu < big),
                            sorted_tsu, big)
     levels = sort_values(distinct)
-    n_levels = devmod.sync_int((levels < big).sum())
+    n_levels = devmod.sync_int((levels < big).sum(), "trk")
 
     matched = torch.full((T,), -1, dtype=torch.int32, device=dev)
     taken = torch.zeros((D,), dtype=torch.bool, device=dev)
     for lv_i in range(n_levels):
-        if not devmod.sync_bool((det_valid & ~taken).any()):
+        if not devmod.sync_bool((det_valid & ~taken).any(), "trk"):
             break
-        row_mask = confirmed & (time_since_update == levels[lv_i])
-        mc, cm = masked_min_cost_matching(
-            app_cost, row_mask, track_id, det_valid & ~taken,
-            cfg.max_cosine_distance, K)
-        matched = torch.where(mc >= 0, mc, matched)
-        taken = taken | cm
+        with devmod.span("framestep.trk_level"):
+            row_mask = confirmed & (time_since_update == levels[lv_i])
+            mc, cm = masked_min_cost_matching(
+                app_cost, row_mask, track_id, det_valid & ~taken,
+                cfg.max_cosine_distance, K)
+            matched = torch.where(mc >= 0, mc, matched)
+            taken = taken | cm
     return matched, taken
 
 
@@ -127,7 +130,7 @@ def iou_stage(cfg: TrackerConfig, iou_cost: torch.Tensor,
     # unmatched confirmed tsu == 1 ones (ascending)
     row_key = torch.where(tentative, track_id, track_id + _BIGKEY // 2)
     col_mask = det_valid & ~det_taken
-    if not devmod.sync_bool(row_mask.any() & col_mask.any()):
+    if not devmod.sync_bool(row_mask.any() & col_mask.any(), "trk"):
         return cascade_matched, det_taken
     mc, cm = masked_min_cost_matching(iou_cost, row_mask, row_key, col_mask,
                                       cfg.max_iou_distance, K)

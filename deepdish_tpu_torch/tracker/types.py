@@ -119,14 +119,14 @@ def gallery_pressure(cfg: TrackerConfig, table: TrackTable) -> int:
     sync). When it reaches gallery_size the ring starts overwriting and
     appearance costs diverge from the reference's unbounded gallery
     (deepdish.py:515 budget=None); the runtime grows the gallery first."""
-    return sync_int(table.gallery_count.max())
+    return sync_int(table.gallery_count.max(), "gallery")
 
 
 def gallery_overflow(cfg: TrackerConfig, table: TrackTable) -> int:
     """Total features overwritten by the ring across slots (0: the bounded
     gallery is still exactly the reference's unbounded one)."""
     over = torch.clamp(table.gallery_count - cfg.gallery_size, min=0)
-    return sync_int(over.sum())
+    return sync_int(over.sum(), "gallery")
 
 
 def grow_gallery(cfg: TrackerConfig, table: TrackTable, new_size: int):

@@ -201,6 +201,13 @@ def test_profile_components(fs, capsys):
     assert line["platform"] == "cpu" and line["device"]["name"] is None
     assert line["idle_share"] is None                 # no device here
     assert "framestep.tracker" in line["stage_host_ms_per_frame"]
+    # the tracker's stages and the host syncs are parts of their ranges
+    inside = line["stage_inside_ms_per_frame"]
+    for stage in ("trk_predict", "trk_cascade", "trk_iou", "trk_update"):
+        assert list(inside["framestep." + stage]) == ["framestep.tracker"]
+    assert set(inside["framestep.sync_nms"]) == {"ssd.decode_nms",
+                                                 "framestep.filter_nms"}
+    assert "framestep.tracker" not in inside
     assert all(math.isfinite(v) for v in _numbers(
         {k: v for k, v in line.items() if k != "idle_share"}))
     frames = torch.from_numpy(bench.SyntheticSource(2, 2, H, W, False)
