@@ -42,18 +42,18 @@ def xyxy_to_tlwh(xyxy: torch.Tensor) -> torch.Tensor:
 
 def iou_matrix_tlwh(a_tlwh: torch.Tensor, b_tlwh: torch.Tensor
                     ) -> torch.Tensor:
-    """(N, 4) x (M, 4) -> (N, M), deep_sort/iou_matching.py arithmetic (no
-    +1 pixel convention)."""
-    a_tl = a_tlwh[:, None, :2]
-    a_br = a_tl + a_tlwh[:, None, 2:4]
-    b_tl = b_tlwh[None, :, :2]
-    b_br = b_tl + b_tlwh[None, :, 2:4]
+    """(..., N, 4) x (..., M, 4) -> (..., N, M), deep_sort/iou_matching.py
+    arithmetic (no +1 pixel convention)."""
+    a_tl = a_tlwh[..., :, None, :2]
+    a_br = a_tl + a_tlwh[..., :, None, 2:4]
+    b_tl = b_tlwh[..., None, :, :2]
+    b_br = b_tl + b_tlwh[..., None, :, 2:4]
     tl = torch.maximum(a_tl, b_tl)
     br = torch.minimum(a_br, b_br)
     wh = torch.clamp(br - tl, min=0.0)
     inter = wh[..., 0] * wh[..., 1]
-    area_a = a_tlwh[:, None, 2] * a_tlwh[:, None, 3]
-    area_b = b_tlwh[None, :, 2] * b_tlwh[None, :, 3]
+    area_a = a_tlwh[..., :, None, 2] * a_tlwh[..., :, None, 3]
+    area_b = b_tlwh[..., None, :, 2] * b_tlwh[..., None, :, 3]
     return inter / (area_a + area_b - inter)
 
 

@@ -18,16 +18,17 @@ def gallery_min_cosine(gallery: torch.Tensor, gallery_valid: torch.Tensor,
                        features: torch.Tensor,
                        feat_valid: torch.Tensor | None = None,
                        data_is_normalized: bool = False) -> torch.Tensor:
-    """(T, G, F) gallery, (T, G) validity, (D, F) features -> (T, D) min
-    cosine distance over valid gallery rows; +inf for an empty gallery."""
+    """(..., T, G, F) gallery, (..., T, G) validity, (..., D, F) features
+    -> (..., T, D) min cosine distance over valid gallery rows; +inf for an
+    empty gallery. A leading axis (streams) batches the product."""
     g = gallery if data_is_normalized else _normalize(gallery)
     f = features if data_is_normalized else _normalize(features)
-    sims = torch.einsum("tgf,df->tgd", g, f)
+    sims = torch.einsum("...tgf,...df->...tgd", g, f)
     dists = 1.0 - sims
-    dists = torch.where(gallery_valid[:, :, None], dists,
+    dists = torch.where(gallery_valid[..., None], dists,
                         torch.full_like(dists, float("inf")))
-    out = dists.amin(dim=1)
+    out = dists.amin(dim=-2)
     if feat_valid is not None:
-        out = torch.where(feat_valid[None, :], out,
+        out = torch.where(feat_valid[..., None, :], out,
                           torch.full_like(out, float("inf")))
     return out

@@ -2,8 +2,10 @@
 
 Port of the batched forms in deepdish_tpu/ops/kalman.py (`initiate_v`,
 `predict_v`, `update_v`, `gating_distance_v`): every function works on a
-(T, 8) mean / (T, 8, 8) covariance table at once. The 8-dim state is
-(x, y, a, h, vx, vy, va, vh) with dt = 1.
+(T, 8) mean / (T, 8, 8) covariance table at once, and on a stack of such
+tables with leading axes, (S, T, 8) / (S, T, 8, 8) for a tracker batched
+over streams. The 8-dim state is (x, y, a, h, vx, vy, va, vh) with
+dt = 1.
 
 deep_sort's state pairs never couple across dimensions, so the innovation
 covariance S is diagonal (`_projected_var`, kalman.py:91) and the update
@@ -31,10 +33,11 @@ def _const(h: torch.Tensor, value: float) -> torch.Tensor:
 
 
 def initiate_v(measurement_xyah: torch.Tensor):
-    """(N, 4) measurements -> (N, 8) means, (N, 8, 8) covariances."""
+    """(..., N, 4) measurements -> (..., N, 8) means, (..., N, 8, 8)
+    covariances."""
     m = measurement_xyah
     mean = torch.cat([m, torch.zeros_like(m)], dim=-1)
-    h = m[:, 3]
+    h = m[..., 3]
     std = torch.stack([
         2 * _STD_WEIGHT_POSITION * h,
         2 * _STD_WEIGHT_POSITION * h,
@@ -49,7 +52,7 @@ def initiate_v(measurement_xyah: torch.Tensor):
 
 
 def predict_v(mean: torch.Tensor, covariance: torch.Tensor):
-    h = mean[:, 3]
+    h = mean[..., 3]
     std = torch.stack([
         _STD_WEIGHT_POSITION * h, _STD_WEIGHT_POSITION * h,
         _const(h, 1e-2), _STD_WEIGHT_POSITION * h,
@@ -64,29 +67,31 @@ def predict_v(mean: torch.Tensor, covariance: torch.Tensor):
 
 
 def _projected_var(mean: torch.Tensor, covariance: torch.Tensor):
-    """Diagonal of S = H P H^T + R, (T, 4)."""
-    h = mean[:, 3]
+    """Diagonal of S = H P H^T + R, (..., T, 4)."""
+    h = mean[..., 3]
     std = torch.stack([
         _STD_WEIGHT_POSITION * h, _STD_WEIGHT_POSITION * h,
         _const(h, 1e-1), _STD_WEIGHT_POSITION * h,
     ], dim=-1)
-    return torch.diagonal(covariance, dim1=-2, dim2=-1)[:, :4] + std * std
+    return torch.diagonal(covariance, dim1=-2, dim2=-1)[..., :4] + std * std
 
 
 def update_v(mean: torch.Tensor, covariance: torch.Tensor,
              measurement_xyah: torch.Tensor):
-    """Measurement correction for every slot with its own (T, 4) row."""
+    """Measurement correction for every slot with its own (..., T, 4)
+    row."""
     s = _projected_var(mean, covariance)
-    gain = covariance[:, :, :4] / s[:, None, :]            # (T, 8, 4)
-    innovation = measurement_xyah - mean[:, :4]
-    new_mean = mean + (gain @ innovation[:, :, None])[:, :, 0]
-    new_cov = covariance - (gain * s[:, None, :]) @ gain.transpose(1, 2)
+    gain = covariance[..., :4] / s[..., None, :]           # (..., T, 8, 4)
+    innovation = measurement_xyah - mean[..., :4]
+    new_mean = mean + (gain @ innovation[..., None])[..., 0]
+    new_cov = covariance - (gain * s[..., None, :]) @ gain.transpose(-1, -2)
     return new_mean, new_cov
 
 
 def gating_distance_v(mean: torch.Tensor, covariance: torch.Tensor,
                       measurements_xyah: torch.Tensor) -> torch.Tensor:
-    """Squared Mahalanobis distance, (T, 8), (T, 8, 8), (N, 4) -> (T, N)."""
+    """Squared Mahalanobis distance, (..., T, 8), (..., T, 8, 8),
+    (..., N, 4) -> (..., T, N)."""
     s = _projected_var(mean, covariance)
-    d = measurements_xyah[None, :, :] - mean[:, None, :4]
-    return torch.sum(d * d / s[:, None, :], dim=-1)
+    d = measurements_xyah[..., None, :, :] - mean[..., :, None, :4]
+    return torch.sum(d * d / s[..., :, None, :], dim=-1)

@@ -80,3 +80,14 @@ def scatter_rows_unique(base: torch.Tensor, idx: torch.Tensor,
     out = torch.cat([base, base[:1]], dim=0)
     out[dest] = upd.to(base.dtype)
     return out[:n]
+
+
+def flat_rows(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """(S, M) row indices into S tables of n rows each -> (S * M,) indices
+    into their S * n rows laid end to end (`flatten(0, 1)`), for
+    `scatter_rows_unique` over a batch: entry s of a row in [0, n) moves to
+    s * n + row, any other goes to S * n, past the end, and is dropped."""
+    s = idx.shape[0]
+    offset = torch.arange(s, device=idx.device)[:, None] * n
+    ok = (idx >= 0) & (idx < n)
+    return torch.where(ok, idx + offset, s * n).reshape(-1)

@@ -13,12 +13,15 @@ axis inside a `shard_map`. Here a call runs, on each device:
     state is temporal), when the FrameStep has it on;
   * ONE detect + encode forward over all of the device's S/D * F frames
     (`FrameStep._detect_encode_frames`);
-  * each stream's tracker over its own F frames (`FrameStep._track_frames`).
-The tracker stays per stream: S * F sequential `tracker.step` calls, each
-LSAP launch with a batch of one matrix. The results per stream are those
-of `FrameStep.run_chunk` on that stream alone. A call of
-`MultiStreamEngine` runs in the profiler range "framestep.call", its I420
-conversion in "framestep.yuv_rgb" (`device.span`).
+  * the tracker over the device's S/D streams at once
+    (`FrameStep._track_streams`): their tables stacked, then one batched
+    `tracker.step` a frame index, F in a row, as the JAX engine's `vmap`
+    does; each cascade level and the IoU stage solve all S/D streams'
+    problems in one LSAP launch (B = S/D).
+The results per stream are those of `FrameStep.run_chunk` on that stream
+alone; each stream's state comes back as its slice of the stacked table.
+A call of `MultiStreamEngine` runs in the profiler range "framestep.call",
+its I420 conversion in "framestep.yuv_rgb" (`device.span`).
 
 A mesh may name one device several times (several shards on one card).
 Where it names a device other than the FrameStep's, the engine works on a
@@ -37,7 +40,7 @@ import torch
 
 from ..device import resolve_device, span
 from ..ops import colorspace
-from ..pipeline.framestep import FrameStep, PipelineState, _stack
+from ..pipeline.framestep import FrameStep, PipelineState
 
 
 class Mesh:
@@ -167,8 +170,9 @@ def split(tree, n: int):
 def streams_chunk(fs: FrameStep, states, frames: torch.Tensor):
     """k streams' (k, F, H, W, 3) frames on fs's device: each stream's
     bgsub prelude, ONE detect + encode forward over the k * F frames, then
-    each stream's tracker over its F frames. Returns (k new PipelineStates,
-    outputs stacked (k, F, ...), snapshots stacked (k, F, ...))."""
+    ONE batched tracker step over the k streams a frame. Returns (k new
+    PipelineStates, outputs stacked (k, F, ...), snapshots stacked
+    (k, F, ...))."""
     k, F = frames.shape[:2]
     if fs.step_cfg.background_subtraction:
         preludes = [fs._bgsub_frames(st.bg, x)
@@ -180,13 +184,10 @@ def streams_chunk(fs: FrameStep, states, frames: torch.Tensor):
         flat, integrals = frames.flatten(0, 1), None
         bgs = [st.bg for st in states]
     dets, snaps = fs._detect_encode_frames(flat, integrals)
-    new, outs = [], []
-    for st, bg, det in zip(states, bgs, split(dets, k)):
-        st, out = fs._track_frames(st, bg, det)
-        new.append(st)
-        outs.append(out)
-    snaps = type(snaps)(*(t.reshape((k, F) + t.shape[1:]) for t in snaps))
-    return new, _stack(outs), snaps
+    dets, snaps = (type(x)(*(t.reshape((k, F) + t.shape[1:]) for t in x))
+                   for x in (dets, snaps))
+    new, outs = fs._track_streams(states, bgs, dets)
+    return new, outs, snaps
 
 
 class StreamStates(NamedTuple):

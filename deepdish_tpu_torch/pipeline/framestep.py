@@ -26,8 +26,10 @@ order (its state is temporal; `_bgsub_frames`), the detector runs batched
 over the frames, MARS over all F * E crops at once
 (`_detect_encode_frames`), then the tracker steps through the frames in
 order (`_track_frames`). The parallel engines (parallel/) call the three
-pieces themselves, to batch detect + encode over several streams' frames. `run_chunk_yuv` takes I420 frames and converts them on the device
-first. `detect_only` and `encode_track` split `step` in two for CVAT
+pieces themselves, to batch detect + encode over several streams' frames;
+`MultiStreamEngine` tracks its streams with `_track_streams`, one batched
+`tracker.step` over all of a shard's streams a frame index.
+`run_chunk_yuv` takes I420 frames and converts them on the device first. `detect_only` and `encode_track` split `step` in two for CVAT
 mode, where the host merges annotations into the detections in between.
 
 Each stage runs inside a profiler range opened by `device.span`
@@ -35,7 +37,9 @@ Each stage runs inside a profiler range opened by `device.span`
 "<family>.net", "<family>.decode_nms" (ssd, yolov5, yolov3, efficientdet;
 Faster R-CNN's are "frcnn.trunk", "frcnn.rpn_nms", "frcnn.crop_block4",
 "frcnn.second_nms"), "framestep.filter_nms", "framestep.crop_mars",
-"framestep.tracker"), so a profiler run splits a frame's time by stage;
+"framestep.tracker", around one `tracker.step` (`_track`): one stream's
+frame, or in `_track_streams` one frame index of a shard's k streams), so
+a profiler run splits a frame's time by stage;
 without a profiler the ranges cost one flag check each and record nothing.
 Nested in them:
   * in "framestep.tracker", the tracker's stages, which together cover
@@ -287,6 +291,8 @@ class FrameStep:
         return dets, snaps
 
     def _track(self, state: PipelineState, bg, dets):
+        """One `tracker.step` on one stream's table, or on a stack of
+        streams' tables (`_track_streams`)."""
         with span("framestep.tracker"):
             table, out = tt.step(self.tracker_cfg, state.table, dets)
         return PipelineState(table, bg), out
@@ -393,6 +399,25 @@ class FrameStep:
                                      tt.Detections(*(x[f] for x in dets)))
             outs.append(out)
         return state, _stack(outs)
+
+    def _track_streams(self, states, bgs, dets):
+        """The tracker over k streams' F frames' Detections (stacked
+        (k, F, ...)): their k tables stacked into one, then one batched
+        `tracker.step` a frame index over all k streams, the frames in
+        order. Each stream's results are `_track_frames`' on it alone.
+        Returns (k PipelineStates, each a slice of the stacked table with
+        its MOG2 state from `bgs`, outputs stacked (k, F, ...))."""
+        stacked = PipelineState(tt.TrackTable(
+            *(torch.stack(x) for x in zip(*(st.table for st in states)))))
+        outs = []
+        for f in range(dets.valid.shape[1]):
+            stacked, out = self._track(
+                stacked, None, tt.Detections(*(x[:, f] for x in dets)))
+            outs.append(out)
+        tables = zip(*(x.unbind(0) for x in stacked.table))
+        return ([PipelineState(tt.TrackTable(*t), bg)
+                 for t, bg in zip(tables, bgs)],
+                type(outs[0])(*(torch.stack(x, 1) for x in zip(*outs))))
 
     @torch.inference_mode()
     def run_chunk(self, state: PipelineState, frames_rgb):

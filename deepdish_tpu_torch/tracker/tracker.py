@@ -15,8 +15,15 @@ reference (deep_sort/tracker.py, track.py):
     ids; features wait in `pending` and reach the gallery once the track is
     confirmed.
 
+The step works on S streams' tables at once, stacked on a leading axis
+((S, T, ...) fields, (S, D, ...) detections), as the JAX engine's `vmap`
+over streams does: each op and each cascade level runs once for all S
+(`matching.py`), and each stream's result is the one it gets alone. One
+stream's (T, ...) table is the S = 1 case.
+
 `step` consumes its table: the gallery ring is written in place (it is the
-largest tensor, (T, G, F)); every other field of the returned table is new.
+largest tensor, (S, T, G, F)); every other field of the returned table is
+new.
 Its four stages run in the profiler ranges "framestep.trk_predict",
 "framestep.trk_cascade", "framestep.trk_iou" and "framestep.trk_update"
 (`device.span`), which together cover the step.
@@ -30,7 +37,8 @@ from ..ops import boxes as boxops
 from ..ops import kalman
 from ..ops.distance import _normalize as _normalize_rows
 from ..ops.distance import gallery_min_cosine
-from ..ops.onehot import scatter_rows_unique, stable_argsort
+from ..ops.onehot import (flat_rows, gather_rows, scatter_rows_unique,
+                          stable_argsort)
 from .matching import iou_stage, matching_cascade
 from .types import (CONFIRMED, EMPTY, INFTY_COST, TENTATIVE, Detections,
                     TrackStepOutput, TrackTable, TrackerConfig)
@@ -38,24 +46,35 @@ from .types import (CONFIRMED, EMPTY, INFTY_COST, TENTATIVE, Detections,
 
 def _gallery_valid(cfg: TrackerConfig, gallery_count: torch.Tensor):
     g = torch.arange(cfg.gallery_size, device=gallery_count.device)
-    return g[None, :] < torch.clamp(gallery_count, max=cfg.gallery_size)[:, None]
+    return g < torch.clamp(gallery_count, max=cfg.gallery_size)[..., None]
 
 
 def _one_hot(label: torch.Tensor, n: int, dtype) -> torch.Tensor:
-    """(N,) -> (N, n); out-of-range labels give a zero row, as
+    """(..., N) -> (..., N, n); out-of-range labels give a zero row, as
     jax.nn.one_hot does."""
     ids = torch.arange(n, device=label.device)
-    return (label.long()[:, None] == ids[None, :]).to(dtype)
+    return (label.long()[..., None] == ids).to(dtype)
 
 
 def step(cfg: TrackerConfig, table: TrackTable, dets: Detections):
-    """One frame: returns (new_table, TrackStepOutput)."""
+    """One frame: returns (new_table, TrackStepOutput).
+
+    A table of one stream ((T, ...) fields, `next_id` ()) with (D, ...)
+    detections is the S = 1 case of S streams' tables stacked on a leading
+    axis ((S, T, ...), `next_id` (S,)) with (S, D, ...) detections; the
+    outputs have the table's leading axes."""
+    if table.state.dim() == 1:
+        new, out = step(cfg, TrackTable(*(x.unsqueeze(0) for x in table)),
+                        Detections(*(x.unsqueeze(0) for x in dets)))
+        return (TrackTable(*(x[0] for x in new)),
+                TrackStepOutput(*(x[0] for x in out)))
     with span("framestep.trk_predict"):
         T, D, L, P = (cfg.max_tracks, cfg.max_detections, cfg.num_labels,
                       cfg.pending_size)
         G = cfg.gallery_size
         if P > G:
             raise ValueError("pending_size must not exceed gallery_size")
+        S = table.state.shape[0]
         dev = table.mean.device
         i32 = torch.int32
         live = table.state != EMPTY
@@ -63,8 +82,8 @@ def step(cfg: TrackerConfig, table: TrackTable, dets: Detections):
 
         # ---- predict (tracker.py:51-57) ----
         pm, pc = kalman.predict_v(table.mean, table.cov)
-        mean = torch.where(live[:, None], pm, table.mean)
-        cov = torch.where(live[:, None, None], pc, table.cov)
+        mean = torch.where(live[..., None], pm, table.mean)
+        cov = torch.where(live[..., None, None], pc, table.cov)
         age = table.age + live_i
         tsu = table.time_since_update + live_i
 
@@ -75,7 +94,7 @@ def step(cfg: TrackerConfig, table: TrackTable, dets: Detections):
         det_xyah = boxops.tlwh_to_xyah(dets.tlwh)
         app = gallery_min_cosine(
             table.gallery,
-            _gallery_valid(cfg, table.gallery_count) & live[:, None],
+            _gallery_valid(cfg, table.gallery_count) & live[..., None],
             feat_n, data_is_normalized=True)
         app = torch.where(torch.isfinite(app), app,
                           torch.full_like(app, INFTY_COST))
@@ -83,10 +102,10 @@ def step(cfg: TrackerConfig, table: TrackTable, dets: Detections):
         app = torch.where(gate > cfg.gating_threshold,
                           torch.full_like(app, INFTY_COST), app)
 
-        track_tlwh = boxops.xyah_to_tlwh(mean[:, :4])
+        track_tlwh = boxops.xyah_to_tlwh(mean[..., :4])
         iou = 1.0 - boxops.iou_matrix_tlwh(track_tlwh, dets.tlwh)
-        iou = torch.where((tsu > 1)[:, None], torch.full_like(iou, INFTY_COST),
-                          iou)
+        iou = torch.where((tsu > 1)[..., None],
+                          torch.full_like(iou, INFTY_COST), iou)
 
     # ---- two-stage association (tracker.py:95-133) ----
     with span("framestep.trk_cascade"):
@@ -102,24 +121,25 @@ def step(cfg: TrackerConfig, table: TrackTable, dets: Detections):
         mdet = matched.clamp(0, D - 1).long()
 
         # ---- Kalman measurement update of matched tracks ----
-        um, uc = kalman.update_v(mean, cov, det_xyah[mdet])
-        mean = torch.where(was_matched[:, None], um, mean)
-        cov = torch.where(was_matched[:, None, None], uc, cov)
+        um, uc = kalman.update_v(mean, cov, gather_rows(det_xyah, mdet))
+        mean = torch.where(was_matched[..., None], um, mean)
+        cov = torch.where(was_matched[..., None, None], uc, cov)
         hits = table.hits + wm_i
         tsu = torch.where(was_matched, 0, tsu)
 
         # label vote (track.py:147-152)
-        onehot = _one_hot(dets.label[mdet], L, i32) * wm_i[:, None]
+        onehot = _one_hot(dets.label.gather(1, mdet), L, i32) * wm_i[..., None]
         label_count = table.label_count + onehot
         label_conf = (table.label_conf +
                       onehot.to(table.label_conf.dtype) *
-                      dets.confidence[mdet][:, None])
+                      dets.confidence.gather(1, mdet)[..., None])
 
         # pending feature append (track.py:141)
         pslot = table.pending_count.clamp(0, P - 1)
         p_ids = torch.arange(P, device=dev)
-        put = was_matched[:, None] & (p_ids[None, :] == pslot[:, None])
-        pending = torch.where(put[:, :, None], feat_n[mdet][:, None, :],
+        put = was_matched[..., None] & (p_ids == pslot[..., None])
+        pending = torch.where(put[..., None],
+                              gather_rows(feat_n, mdet)[:, :, None, :],
                               table.pending)
         pending_count = torch.clamp(table.pending_count + wm_i, max=P)
 
@@ -133,10 +153,10 @@ def step(cfg: TrackerConfig, table: TrackTable, dets: Detections):
         aged_out = (state == CONFIRMED) & (tsu > cfg.max_age)
         delete = unmatched_live & ((state == TENTATIVE) | aged_out)
         deleted_id = torch.where(delete, table.track_id, -1)
-        deleted_tlwh = torch.where(delete[:, None],
-                                   boxops.xyah_to_tlwh(mean[:, :4]), 0.0)
-        deleted_lc = torch.where(delete[:, None], label_count, 0)
-        deleted_lf = torch.where(delete[:, None], label_conf, 0.0)
+        deleted_tlwh = torch.where(delete[..., None],
+                                   boxops.xyah_to_tlwh(mean[..., :4]), 0.0)
+        deleted_lc = torch.where(delete[..., None], label_count, 0)
+        deleted_lf = torch.where(delete[..., None], label_conf, 0.0)
 
         # free deleted slots
         state = torch.where(delete, EMPTY, state)
@@ -144,7 +164,7 @@ def step(cfg: TrackerConfig, table: TrackTable, dets: Detections):
         track_id = torch.where(delete, -1, table.track_id)
 
         def zero_on_delete(x):
-            mask = delete.reshape((T,) + (1,) * (x.dim() - 1))
+            mask = delete.reshape((S, T) + (1,) * (x.dim() - 2))
             return torch.where(mask, torch.zeros_like(x), x)
 
         hits = zero_on_delete(hits)
@@ -155,46 +175,50 @@ def step(cfg: TrackerConfig, table: TrackTable, dets: Detections):
         pending_count = zero_on_delete(pending_count)
         gallery_count = zero_on_delete(table.gallery_count)
         blank_mean = torch.zeros_like(mean)
-        blank_mean[:, 3] = 1.0
-        mean = torch.where(delete[:, None], blank_mean, mean)
-        cov = torch.where(delete[:, None, None],
-                          torch.eye(8, dtype=cov.dtype, device=dev)[None], cov)
+        blank_mean[..., 3] = 1.0
+        mean = torch.where(delete[..., None], blank_mean, mean)
+        cov = torch.where(delete[..., None, None],
+                          torch.eye(8, dtype=cov.dtype, device=dev), cov)
 
         # ---- initiate new tracks (tracker.py:78-79,135-138) ----
         new_det = dets.valid & ~taken
-        det_rank = torch.cumsum(new_det.to(i32), 0) - 1
+        det_rank = torch.cumsum(new_det.to(i32), -1) - 1
         free = ~live
         slot_ids = torch.arange(T, dtype=i32, device=dev)
         free_order = stable_argsort(torch.where(free, slot_ids, T + slot_ids))
-        n_free = free.to(i32).sum()
-        can_place = new_det & (det_rank < n_free)
-        det_slot = torch.where(can_place, free_order[det_rank.clamp(0, T - 1)],
-                               T)
+        n_free = free.to(i32).sum(-1)
+        can_place = new_det & (det_rank < n_free[:, None])
+        det_slot = torch.where(
+            can_place, free_order.gather(1, det_rank.clamp(0, T - 1)), T)
 
         im, ic = kalman.initiate_v(det_xyah)
+        # each stream's slots offset onto its rows of the (S * T) tables
+        flat_slot = flat_rows(det_slot, T)
 
         def scat(arr, upd):
-            return scatter_rows_unique(arr, det_slot, upd)
+            return scatter_rows_unique(arr.flatten(0, 1), flat_slot,
+                                       upd.flatten(0, 1)).view(arr.shape)
 
         mean = scat(mean, im)
         cov = scat(cov, ic)
-        state = scat(state, torch.full((D,), TENTATIVE, dtype=i32, device=dev))
-        track_id = scat(track_id, (table.next_id + det_rank).to(i32))
-        ones = torch.ones((D,), dtype=i32, device=dev)
+        state = scat(state,
+                     torch.full((S, D), TENTATIVE, dtype=i32, device=dev))
+        track_id = scat(track_id, (table.next_id[:, None] + det_rank).to(i32))
+        ones = torch.ones((S, D), dtype=i32, device=dev)
         hits = scat(hits, ones)
         age = scat(age, ones)
         tsu = scat(tsu, torch.zeros_like(ones))
         label_count = scat(label_count, _one_hot(dets.label, L, i32))
         label_conf = scat(label_conf,
                           _one_hot(dets.label, L, label_conf.dtype) *
-                          dets.confidence[:, None])
-        pend0 = torch.zeros((D, P, cfg.feature_dim), dtype=pending.dtype,
+                          dets.confidence[..., None])
+        pend0 = torch.zeros((S, D, P, cfg.feature_dim), dtype=pending.dtype,
                             device=dev)
-        pend0[:, 0, :] = feat_n
+        pend0[:, :, 0, :] = feat_n
         pending = scat(pending, pend0)
         pending_count = scat(pending_count, ones)
         gallery_count = scat(gallery_count, torch.zeros_like(ones))
-        next_id = table.next_id + can_place.to(i32).sum()
+        next_id = table.next_id + can_place.to(i32).sum(-1)
 
         # ---- gallery partial_fit of confirmed tracks (tracker.py:83-93) --
         # feature k of slot t goes to ring position (gallery_count[t] + k) %
@@ -203,13 +227,15 @@ def step(cfg: TrackerConfig, table: TrackTable, dets: Detections):
         # back their own current value, which drops them with no host sync.
         confirmed_now = state == CONFIRMED
         flush_n = torch.where(confirmed_now, pending_count, 0)
-        pos = (gallery_count[:, None] + p_ids[None, :]) % G          # (T, P)
-        do = p_ids[None, :] < flush_n[:, None]
-        t_idx = torch.arange(T, device=dev)[:, None].expand(T, P)
+        pos = (gallery_count[..., None] + p_ids) % G               # (S, T, P)
+        do = p_ids < flush_n[..., None]
+        s_idx = torch.arange(S, device=dev)[:, None, None].expand(S, T, P)
+        t_idx = torch.arange(T, device=dev)[:, None].expand(S, T, P)
         gallery = table.gallery
         pos_l = pos.long()
-        vals = torch.where(do[:, :, None], pending, gallery[t_idx, pos_l])
-        gallery.index_put_((t_idx, pos_l), vals)
+        vals = torch.where(do[..., None], pending,
+                           gallery[s_idx, t_idx, pos_l])
+        gallery.index_put_((s_idx, t_idx, pos_l), vals)
         gallery_count = gallery_count + flush_n
         pending_count = torch.where(confirmed_now, 0, pending_count)
 
@@ -221,7 +247,7 @@ def step(cfg: TrackerConfig, table: TrackTable, dets: Detections):
             label_conf=label_conf, next_id=next_id)
         out = TrackStepOutput(
             track_id=track_id, state=state,
-            tlwh=boxops.xyah_to_tlwh(mean[:, :4]), time_since_update=tsu,
+            tlwh=boxops.xyah_to_tlwh(mean[..., :4]), time_since_update=tsu,
             hits=hits, age=age, label_count=label_count, label_conf=label_conf,
             matched_det=matched, deleted_id=deleted_id,
             deleted_tlwh=deleted_tlwh, deleted_label_count=deleted_lc,

@@ -2,7 +2,7 @@
 against its plain version and scipy, the fused depthwise-separable kernel
 against its plain version, their wrappers' checks, the tracker, the
 MOG2 background subtraction and the frame step on the card against the
-CPU, the quantized paths' exact integer contractions and executor on
+CPU, the 16-stream engine's batched tracker against its streams alone, the quantized paths' exact integer contractions and executor on
 the card against the CPU, tools/probe_int8.py's int8 steps card == CPU
 and the w8a8 MARS's two int8 contractions (impl dot and conv) equal on
 the card. They skip without a card, and
@@ -381,6 +381,104 @@ def test_multistream_engine_on_the_card(cuda):
                                           getattr(o, name).cpu().numpy())
         np.testing.assert_array_equal(snaps.valid[s].cpu().numpy(),
                                       sn.valid.cpu().numpy())
+
+
+class _CodedWalkers:
+    """A scripted detector on `device` for `_walker_scene`: each frame
+    carries its stream s and frame t in a top-left block (10 s, 10 t), read
+    back on the device, and the boxes are the scene's for (s, t)."""
+
+    labels = {0: "person"}
+    height, width = 16, 16
+    compute_dtype = torch.float32
+
+    def __init__(self, boxes, valid, device):
+        self.device = device
+        self.boxes = torch.as_tensor(boxes, dtype=torch.float32,
+                                     device=device)
+        self.valid = torch.as_tensor(valid, device=device)
+
+    def detect(self, images, orig_w, orig_h):
+        code = (images[:, 2, 2, :2] / 10).round().long()
+        xyxy = self.boxes[code[:, 0], code[:, 1]]
+        valid = self.valid[code[:, 0], code[:, 1]]
+        return (xyxy, torch.zeros(valid.shape, dtype=torch.int32,
+                                  device=self.device),
+                valid.to(torch.float32) * 0.9, valid)
+
+
+def _walker_scene(n_streams, n_frames, seed=5, h=96, w=128, walkers=4):
+    """(frames (S, F, h, w, 3) uint8, boxes (S, F, walkers, 4) xyxy, valid
+    (S, F, walkers)): textured 10 x 14 walkers at constant velocity, each
+    missed in 15% of the frames, stream s seeded apart."""
+    rng = np.random.RandomState(seed)
+    frames = np.full((n_streams, n_frames, h, w, 3), 40, np.uint8)
+    boxes = np.zeros((n_streams, n_frames, walkers, 4), np.float32)
+    valid = rng.uniform(size=(n_streams, n_frames, walkers)) > 0.15
+    for s in range(n_streams):
+        # in the frame and below the code block for all n_frames <= 20
+        start = np.c_[rng.uniform(44, w - 54, walkers),
+                      rng.uniform(40, h - 36, walkers)]
+        vel = np.c_[rng.randint(-2, 3, walkers), rng.randint(-1, 2, walkers)]
+        tex = rng.randint(60, 256, (walkers, 14, 10, 3)).astype(np.uint8)
+        for t in range(n_frames):
+            frames[s, t, :16, :16] = (10 * s, 10 * t, 0)
+            for k in range(walkers):
+                x, y = (start[k] + t * vel[k]).astype(int)
+                frames[s, t, y:y + 14, x:x + 10] = tex[k]
+                boxes[s, t, k] = (x, y, x + 10, y + 14)
+    return frames, boxes, valid
+
+
+def test_batched_tracker_engine_equals_streams_alone(cuda, monkeypatch):
+    """The 16-stream MultiStreamEngine, one batched tracker step a call,
+    gives over 20 calls of the walker scene the integer outputs of each
+    stream stepped alone; the LSAP kernel launches once a batched cascade
+    level or IoU stage (B = 16), not once a stream."""
+    from deepdish_tpu_torch import tracker as tt
+    from deepdish_tpu_torch.kernels import lsap
+    from deepdish_tpu_torch.models.encoders import make_dummy_encoder
+    from deepdish_tpu_torch.parallel import MultiStreamEngine, make_mesh
+    from deepdish_tpu_torch.pipeline import FrameStep
+    from deepdish_tpu_torch.tracker import matching
+    S, F = 16, 20
+    frames, boxes, valid = _walker_scene(S, F)
+    cfg = tt.TrackerConfig(max_tracks=16, max_detections=boxes.shape[2],
+                           gallery_size=32, num_labels=1, max_age=5)
+    fs = FrameStep(_CodedWalkers(boxes, valid, cuda),
+                   make_dummy_encoder(cuda), cfg, ["person"],
+                   frames.shape[2:4], device=cuda)
+    solved = []
+    plain = matching.masked_min_cost_matching
+    monkeypatch.setattr(matching, "masked_min_cost_matching",
+                        lambda *a: (solved.append(a[0].shape[0]),
+                                    plain(*a))[1])
+    eng = MultiStreamEngine(fs, S, make_mesh(1, device=cuda))
+    states, outs = eng.init_states(), []
+    before = lsap.launches
+    for t in range(F):
+        states, out, _snaps = eng.step(states, frames[:, t])
+        outs.append(out)
+    torch.cuda.synchronize()
+    batched = lsap.launches - before
+    assert batched == len(solved) > 0 and set(solved) == {S}
+    before = lsap.launches
+    confirmed = 0
+    for s in range(S):
+        st = fs.init_state()
+        for t in range(F):
+            st, o, _snap, _raw = fs.step(st, frames[s, t])
+            for name in ("track_id", "state", "matched_det", "deleted_id",
+                         "hits", "age", "time_since_update",
+                         "label_count"):
+                np.testing.assert_array_equal(
+                    getattr(outs[t], name)[s].cpu().numpy(),
+                    getattr(o, name).cpu().numpy(),
+                    err_msg=f"stream {s} frame {t} {name}")
+            confirmed += int((o.state == tt.CONFIRMED).sum())
+    torch.cuda.synchronize()
+    assert confirmed > 0
+    assert lsap.launches - before > 4 * batched
 
 
 def test_probe_int8_legs_card_equal_cpu(cuda):

@@ -232,7 +232,7 @@ def test_states_stay_on_their_shard(engines, runs):
     for s, st in enumerate(states.streams):
         want = pe.mesh.devices.flat[s // k]
         assert all(t.device == want for t in st.table)
-    # each shard's streams are its own tensors, not views of one table
+    # each stream has its own slice of its shard's table: no two alias
     ptrs = {st.table.mean.data_ptr() for st in states.streams}
     assert len(ptrs) == S
 

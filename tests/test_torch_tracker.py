@@ -3,7 +3,9 @@ against deepdish_tpu (JAX on the CPU) frame by frame on randomised
 detection streams. Ids, states, matched detections, deletions, hits, ages
 and label votes are integers and must match exactly; boxes and the gallery
 are float32 with a stated tolerance. The small gallery (G = 16) makes the
-ring wrap, so the ring write is covered too."""
+ring wrap, so the ring write is covered too. The step batched over a
+leading stream axis is held, stream by stream, to the same streams
+stepped alone."""
 import pytest
 
 jax = pytest.importorskip("jax")  # the reference side needs JAX
@@ -13,6 +15,7 @@ import torch
 
 from deepdish_tpu import tracker as jt
 from deepdish_tpu_torch import tracker as pt
+from deepdish_tpu_torch.tracker import matching
 
 F = 32
 _EXACT = ("track_id", "state", "matched_det", "deleted_id", "hits", "age",
@@ -121,3 +124,107 @@ def test_create_table_needs_a_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             pt.create_table(cfg)
+
+
+# streams of one batch: "walkers" and "occluded" (deep cascade levels,
+# age-outs) confirm tracks, "empty" has no valid detection (no rows in
+# the IoU stage while the others have some), "noise" has detections that
+# never make a confirmed track
+MIXES = {"mixed": ("walkers", "occluded", "empty", "noise"),
+         "crowd": ("occluded", "walkers", "occluded", "walkers", "noise"),
+         "one": ("occluded",)}
+
+
+def _stream_dets(kind, world, rng, frame):
+    if kind == "empty":
+        return []
+    if kind == "noise":
+        return [(np.r_[rng.uniform(0, 2000, 2), 20, 40].astype(np.float32),
+                 0.9, 0, rng.normal(size=F).astype(np.float32))
+                for _ in range(3)]
+    if frame % 5 == 0 and len(world.objs) < 8:
+        world.spawn(label=rng.randint(0, 4))
+    if frame % 13 == 12:
+        world.kill_oldest()
+    return world.frame()
+
+
+@pytest.mark.parametrize("seed,mix", [(0, "mixed"), (1, "mixed"),
+                                      (2, "crowd"), (3, "one")])
+def test_batched_step_equals_streams_alone(seed, mix, monkeypatch):
+    """S streams through one batched step give, frame by frame, what S
+    single-table steps give (integers exact, floats within 1e-5), with one
+    LSAP launch of B = S a batched cascade level and at most one for the
+    IoU stage."""
+    kinds = MIXES[mix]
+    S = len(kinds)
+    cfg = pt.TrackerConfig(max_tracks=16, max_detections=8, feature_dim=F,
+                           gallery_size=16, pending_size=8, num_labels=4,
+                           max_age=6)
+    launches, stages = [], []
+    solve, solve_stage = matching.solve_lsap, \
+        matching.masked_min_cost_matching
+    monkeypatch.setattr(matching, "solve_lsap", lambda c, sz: (
+        launches.append(c.shape[0]), solve(c, sz))[1])
+    monkeypatch.setattr(matching, "masked_min_cost_matching",
+                        lambda cost, rm, rk, cm, dist, K: (
+                            stages.append(dist), solve_stage(
+                                cost, rm, rk, cm, dist, K))[1])
+    rngs = [np.random.RandomState(seed * 100 + i) for i in range(S)]
+    worlds = [World(r, miss_prob=0.35 if k == "occluded" else 0.1)
+              for r, k in zip(rngs, kinds)]
+    alone = [pt.create_table(cfg, device="cpu") for _ in range(S)]
+    batch = pt.TrackTable(*(torch.stack(x) for x in zip(*alone)))
+    alone = [pt.TrackTable(*(x.clone() for x in t)) for t in alone]
+    levels, iou_solved, confirmed = [], 0, 0
+    launches_alone = launches_batched = 0
+    for frame in range(36):
+        dets = [pt.pack_detections(cfg, *zip(*d), device="cpu") if d else
+                pt.pack_detections(cfg, [], [], [], [], device="cpu")
+                for d in (_stream_dets(k, w, r, frame)
+                          for k, w, r in zip(kinds, worlds, rngs))]
+        n = len(launches)
+        outs, lv = [], []
+        for i in range(S):
+            m = len(stages)
+            alone[i], out = pt.step(cfg, alone[i], dets[i])
+            outs.append(out)
+            lv.append(sum(d == cfg.max_cosine_distance for d in stages[m:]))
+        levels.append(lv)
+        launches_alone += len(launches) - n
+        n, n_stages = len(launches), len(stages)
+        batch, bout = pt.step(cfg, batch,
+                              pt.Detections(*map(torch.stack, zip(*dets))))
+        got = launches[n:]
+        launches_batched += len(got)
+        assert got == [S] * len(got)
+        assert len(got) == len(stages) - n_stages
+        iou = sum(d == cfg.max_iou_distance for d in stages[n_stages:])
+        assert iou <= 1
+        iou_solved += iou
+        for i in range(S):
+            for name in bout._fields:
+                a, b = getattr(bout, name)[i], getattr(outs[i], name)
+                if a.dtype.is_floating_point:
+                    np.testing.assert_allclose(a.numpy(), b.numpy(),
+                                               rtol=1e-5, atol=1e-5)
+                else:
+                    np.testing.assert_array_equal(
+                        a.numpy(), b.numpy(),
+                        err_msg=f"{mix} frame={frame} stream={i} {name}")
+        for name in batch._fields:
+            a = getattr(batch, name)
+            for i in range(S):
+                b = getattr(alone[i], name)
+                if a.dtype.is_floating_point:
+                    np.testing.assert_allclose(a[i].numpy(), b.numpy(),
+                                               rtol=1e-5, atol=1e-5)
+                else:
+                    np.testing.assert_array_equal(a[i].numpy(), b.numpy())
+        confirmed += int((bout.state == pt.CONFIRMED).sum())
+    # tracks confirmed, some cascade solved two levels and the IoU stage ran
+    assert confirmed > 0 and max(map(max, levels)) >= 2 and iou_solved > 0
+    if S > 1:
+        # the streams' cascades differ in depth at some frame
+        assert any(len(set(lv)) > 1 for lv in levels)
+        assert launches_batched < launches_alone
